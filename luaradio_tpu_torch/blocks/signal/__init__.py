@@ -1,0 +1,6 @@
+from luaradio_tpu_torch.blocks.signal import filtering, modem, sampling
+from luaradio_tpu_torch.blocks.signal.filtering import *  # noqa: F401,F403
+from luaradio_tpu_torch.blocks.signal.modem import *  # noqa: F401,F403
+from luaradio_tpu_torch.blocks.signal.sampling import *  # noqa: F401,F403
+
+__all__ = filtering.__all__ + modem.__all__ + sampling.__all__
