@@ -19,13 +19,30 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    Downsampler -> WAV) over a synthetic 4 s FM capture with a 3 kHz tone,
    for the f32 and the u8 wire, and again with the K2 rule on; the tone
    must come out within 50 Hz, and the K2 audio must match the default;
-6. the kernels line and the final status line.
+6. K3: the sequential PLL kernel held against its twin over 8 192
+   samples (noise, carrier, zeros + carrier; multipliers 1, 2, 2.5) and
+   at the stereo graph's chunk;
+7. stereo: rx_wbfm's default stereo receiver through the port's CLI
+   (cli.main, in this process) over an 8 s capture at 1 102 500 S/s (0.5 s
+   of noise, then a stereo multiplex with L a 1 kHz and R a 400 Hz tone
+   at ~30 dB SNR); the WAV must have 2 channels and the expected length,
+   and L+R must carry both tones within 50 Hz at SNR > 1e4 over the
+   second half; then the same graph by hand with the vector pilot, which
+   must separate L and R by the JAX package's app-level margin (each
+   channel's tone > 3x the other's);
+8. K3 timed at the graph's chunk and at one 8 s stream at the IF rate
+   (1 764 000 samples), beside its twin, its byte bound and the floor of
+   its dependency chain (a probe kernel that runs only the chain); the
+   overlap-and-discard tier, which plans nothing for the graph's chunk,
+   timed once on a chunk it plans for;
+9. the kernels line and the final status line.
 
-Launch counts are zeroed just before the flagship and the K2 graph run and
-read just after: each kernel must have run on its path.  Any failure
-raises (non-zero exit); a hang ends the run with a traceback after 900 s.
-``--profile PATH`` also writes a torch.profiler table of one graph run to
-PATH.
+Launch counts are zeroed just before the flagship, the K2 graph run and
+the stereo CLI run and read just after: each kernel must have run on its
+path.  Any failure raises (non-zero exit); a hang ends the run with a
+traceback after 240 s.  ``--profile PATH`` also writes a torch.profiler
+table of one mono graph run to PATH and of the stereo run to
+PATH.stereo.txt.
 """
 
 from __future__ import annotations
@@ -45,8 +62,10 @@ import torch
 
 from luaradio_tpu_torch import (CompositeBlock, DownsamplerBlock,
                                 IQFileSource, TunerBlock, WAVFileSink,
-                                WBFMMonoDemodulator)
-from luaradio_tpu_torch.ops import cudabuild, wbfm
+                                WBFMMonoDemodulator, WBFMStereoDemodulator)
+from luaradio_tpu_torch import cli
+from luaradio_tpu_torch.blocks.signal import carrier
+from luaradio_tpu_torch.ops import cudabuild, pll, wbfm
 from luaradio_tpu_torch.ops.complexutil import (complex_to_wire,
                                                 wire_to_complex)
 from luaradio_tpu_torch.ops.fir import _conv_real
@@ -68,6 +87,13 @@ T_RAGGED = 3 * (1 << 14) + 8 * 37
 RATE = 1102500
 TONE = 3e3
 REPS = 25
+#: K3: bytes a sample (8 in, 8 out, 4 err), operations a sample (atan2,
+#: scale, clip, round; the chain's 14; cos and sin), the span held
+#: against the twin, the stereo capture's length and its tones
+PLL_BYTES, PLL_OPS = 20, 22
+PLL_SPAN = 8192
+STEREO_S, NOISE_S = 8, 0.5
+TONE_L, TONE_R = 1000.0, 400.0
 
 
 def log(phase: str, msg: str):
@@ -375,27 +401,322 @@ def phase_graph(tmp, profile, dev, gen):
                  f"K2 launches {launches}, {n / dt / 1e6:.2f} M complex "
                  f"samples/s end to end")
     if profile:
-        profile_graph(paths["f32le"], os.path.join(tmp, "p.wav"), profile)
+        profile_run(lambda: run_graph(paths["f32le"], "f32le",
+                                      os.path.join(tmp, "p.wav")),
+                    profile, "graph f32")
     k2["launches"] = launches
     return k2
 
 
-def profile_graph(path, wav, out):
+def pll_cases(gen, dev, n=PLL_SPAN):
+    """The three inputs of the JAX package's kernel test
+    (test_pll_overlap.py:155-198) at n samples, made on the card."""
+    t = torch.arange(n, device=dev, dtype=torch.float64)
+    carrier_ = 0.7 * torch.polar(torch.ones_like(t),
+                                 2 * np.pi * 0.21 * t + 0.9)
+    noise = torch.randn(n, generator=gen, device=dev, dtype=torch.complex128)
+    zc = carrier_.clone()
+    zc[:n // 4] = 0
+    return {"noise": noise.to(torch.complex64),
+            "carrier": carrier_.to(torch.complex64),
+            "zeros+carrier": zc.to(torch.complex64)}
+
+
+def stereo_pll_params():
+    """alpha, beta, fmin, fmax of the stereo demodulator's PLL at the IF
+    rate (PLLBlock(100, 19e3 - 50, 19e3 + 50, multiplier=2))."""
+    blk = carrier.PLLBlock(100.0, 19e3 - 50, 19e3 + 50, multiplier=2)
+    blk.input_rate = RATE / 5
+    blk.initialize()
+    return blk._alpha, blk._beta, blk._freq_min, blk._freq_max
+
+
+def compare_pll(label, x, state, params, mult):
+    """K3 against its twin on one input: out and err (err modulo 2 pi)
+    and the state.  They round every operation alike and call the same
+    atan2f/cosf/sinf, so they are expected to agree exactly; the limit is
+    1e-5.  Returns the largest error."""
+    got = pll.pll_phase(x, state, *params, mult)
+    exp = pll.pll_phase_reference(x, state, *params, mult)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(torch.view_as_real(g) if g.is_complex()
+                              else g).all() for g in got):
+        raise AssertionError(f"pll_phase {label}: non-finite output")
+    errs = [(got[0] - exp[0]).abs().max().item(),
+            wrap_err(got[1], exp[1], 2 * np.pi),
+            wrap_err(got[2][:2], exp[2][:2], 2 * np.pi),
+            (got[2][2] - exp[2][2]).abs().item()]
+    if max(errs) > 1e-5:
+        raise AssertionError(f"pll_phase {label}: |kernel - twin| (out, "
+                             f"err, phases, freq) = {errs} > 1e-5")
+    return max(errs)
+
+
+def phase_pll_hold(dev, gen):
+    """K3 against its twin over PLL_SPAN samples: three inputs x three
+    multipliers, the stereo PLL's constants."""
+    params = stereo_pll_params()
+    state = torch.tensor([0.3, -0.5, float(params[2])], device=dev)
+    worst = 0.0
+    for name, x in pll_cases(gen, dev).items():
+        for mult in (1.0, 2.0, 2.5):
+            err = compare_pll(f"{name} x{mult}", x, state, params, mult)
+            worst = max(worst, err)
+            log("K3", f"{name}, multiplier {mult}, {x.shape[0]} samples: "
+                      f"max |kernel - twin| {err:.3g} (limit 1e-5)")
+    return worst
+
+
+def write_stereo_capture(tmp):
+    """STEREO_S seconds at RATE, f32le: NOISE_S s of complex Gaussian
+    noise (a receiver tuned before the station comes up), then the stereo
+    multiplex of test_applications.py:95-113 at baseband (L a 1 kHz, R a
+    400 Hz tone, pilot 0.1 cos 19 kHz, 75 kHz deviation) with the noise
+    going on under it at ~30 dB SNR."""
+    rng = np.random.default_rng(11)
+    n = STEREO_S * RATE
+    n0 = int(NOISE_S * RATE)
+    t = np.arange(n - n0) / RATE
+    left = 0.4 * np.sin(2 * np.pi * TONE_L * t)
+    right = 0.4 * np.sin(2 * np.pi * TONE_R * t)
+    mpx = (left + right) + 0.1 * np.cos(2 * np.pi * 19e3 * t) \
+        + (left - right) * np.cos(2 * np.pi * 38e3 * t)
+    del left, right, t
+    z = np.empty(n, np.complex64)
+    z[:n0] = 0
+    z[n0:] = np.exp(1j * 2 * np.pi * 75e3 * np.cumsum(mpx) / RATE)
+    del mpx
+    z += (rng.standard_normal(n, np.float32)
+          + 1j * rng.standard_normal(n, np.float32)) * np.float32(
+              np.sqrt(0.5e-3))
+    path = os.path.join(tmp, "stereo.f32.iq")
+    z.view(np.float32).tofile(path)
+    return path, n
+
+
+def tone_snr(a, rate, tone):
+    """(frequency of the largest bin within 200 Hz of ``tone``, its power
+    over the median bin) over the second half of ``a``."""
+    a = a[len(a) // 2:].astype(np.float64)
+    spec = np.abs(np.fft.rfft(a * np.hanning(len(a)))) ** 2
+    f = np.arange(len(spec)) * rate / len(a)
+    win = np.nonzero(np.abs(f - tone) <= 200)[0]
+    k = win[np.argmax(spec[win])]
+    return f[k], spec[k] / (np.median(spec) + 1e-30)
+
+
+def separation_db(pcm, rate):
+    """Each channel's own tone over the other's, in dB (amplitude
+    spectrum peaks, as test_applications.py:132-140), second half."""
+    def peak(ch, tone):
+        a = pcm[len(pcm) // 2:, ch].astype(np.float64)
+        spec = np.abs(np.fft.rfft(a * np.hanning(len(a))))
+        idx = int(round(tone * len(a) / rate))
+        return spec[max(0, idx - 2):idx + 3].max()
+    return (20 * np.log10(peak(0, TONE_L) / peak(0, TONE_R)),
+            20 * np.log10(peak(1, TONE_R) / peak(1, TONE_L)))
+
+
+def read_wav(path):
+    with wave.open(path) as w:
+        rate, nch = w.getframerate(), w.getnchannels()
+        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    return pcm.reshape(-1, nch), rate
+
+
+def record_pll_chunks():
+    """Wrap PLLBlock.process to record (chunk length, tier) of every chunk
+    a PLL runs; returns the list and a function that unwraps it."""
+    seen, process = [], carrier.PLLBlock.process
+
+    def recording(self, state, x):
+        before = dict(self.tier_counts)
+        out = process(self, state, x)
+        seen.append((x.shape[-1], [k for k in self.tier_counts
+                                   if self.tier_counts[k] != before[k]]))
+        return out
+    carrier.PLLBlock.process = recording
+
+    def restore():
+        carrier.PLLBlock.process = process
+    return seen, restore
+
+
+def run_stereo_cli(path, wav):
+    t0 = time.monotonic()
+    rc = cli.main(["-a", "rx_wbfm", "-i", f"iqfile:{path},rate={RATE}",
+                   "-o", f"wavfile:{wav}", "100e6"])
+    return rc, time.monotonic() - t0
+
+
+def phase_stereo(tmp, profile):
+    """rx_wbfm's default stereo receiver through the CLI, then the vector
+    pilot graph by hand.  Returns (K3 launches, the PLL's chunk length)."""
+    path, n = write_stereo_capture(tmp)
+    log("stereo", f"capture: {n} samples ({STEREO_S} s) at {RATE} S/s, "
+                  f"f32le, {os.path.getsize(path) / 1e6:.1f} MB; noise "
+                  f"for the first {NOISE_S} s")
+    run_stereo_cli(path, os.path.join(tmp, "warm.wav"))     # warm-up
+    wav = os.path.join(tmp, "stereo.wav")
+    seen, restore = record_pll_chunks()
+    try:
+        pll.pll_phase.launches = 0
+        rc, dt = run_stereo_cli(path, wav)
+        torch.cuda.synchronize()
+        launches = pll.pll_phase.launches
+    finally:
+        restore()
+    pcm, rate = read_wav(wav)
+    want = n // 25
+    tiers = [t[0] for _, t in seen]
+    if rc != 0 or launches < 1 or pcm.shape != (want, 2):
+        raise AssertionError(f"stereo CLI: rc {rc}, K3 launches "
+                             f"{launches}, WAV {pcm.shape} (want "
+                             f"({want}, 2))")
+    mono = pcm[:, 0].astype(np.float64) + pcm[:, 1]
+    for tone in (TONE_L, TONE_R):
+        f, snr = tone_snr(mono, rate, tone)
+        if abs(f - tone) > 50 or snr <= 1e4:
+            raise AssertionError(f"stereo CLI: L+R tone {tone} Hz found at "
+                                 f"{f:.1f} Hz with SNR {snr:.3g}")
+        log("stereo", f"L+R carries {tone:.0f} Hz at {f:.1f} Hz, SNR "
+                      f"{snr:.3g} (limits 50 Hz, 1e4)")
+    sep = separation_db(pcm, rate)
+    log("stereo", f"CLI rx_wbfm (PLL pilot): {pcm.shape[0]} frames x 2 at "
+                  f"{rate} Hz in {dt:.3f} s, {n / dt / 1e6:.2f} M complex "
+                  f"samples/s end to end; K3 launches {launches} over "
+                  f"{len(seen)} PLL chunks of {seen[0][0]} samples "
+                  f"(tiers: linear {tiers.count(1)}, overlap "
+                  f"{tiers.count(2)}, sequential {tiers.count(3)}); L/R "
+                  f"separation {sep[0]:.1f} / {sep[1]:.1f} dB (not held: "
+                  f"the doubled carrier's phase depends on the lock history)")
+    if launches != tiers.count(3):
+        raise AssertionError(f"stereo CLI: {launches} K3 launches for "
+                             f"{tiers.count(3)} sequential chunks")
+    if profile:
+        profile_run(lambda: run_stereo_cli(path, os.path.join(tmp, "p.wav")),
+                    f"{profile}.stereo.txt", "stereo CLI")
+
+    vwav = os.path.join(tmp, "vector.wav")
+    top = CompositeBlock()
+    demod = WBFMStereoDemodulator(pilot="vector")
+    l_ds, r_ds = DownsamplerBlock(5), DownsamplerBlock(5)
+    sink = WAVFileSink(vwav, 2)
+    top.connect(IQFileSource(path, "f32le", RATE),
+                TunerBlock(0, 200e3, 5), demod)
+    top.connect(demod, "left", l_ds, "in")
+    top.connect(demod, "right", r_ds, "in")
+    top.connect(l_ds, "out", sink, "in1")
+    top.connect(r_ds, "out", sink, "in2")
+    t0 = time.monotonic()
+    top.run()
+    vdt = time.monotonic() - t0
+    vpcm, _ = read_wav(vwav)
+    vsep = separation_db(vpcm, rate)
+    if vpcm.shape != (want, 2) or min(vsep) <= 20 * np.log10(3):
+        raise AssertionError(f"stereo vector pilot: WAV {vpcm.shape}, "
+                             f"separation {vsep} dB (limit "
+                             f"{20 * np.log10(3):.2f} dB, 3x)")
+    log("stereo", f"vector-pilot graph: L/R separation {vsep[0]:.1f} / "
+                  f"{vsep[1]:.1f} dB (limit {20 * np.log10(3):.2f} dB each, "
+                  f"3x), {n / vdt / 1e6:.2f} M complex samples/s end to end")
+    return launches, seen[0][0]
+
+
+def phase_pll_time(dev, gen, chunk):
+    """K3 timed at the stereo graph's chunk and at one 8 s stream at the
+    IF rate, beside its twin (at the chunk), its byte bound and the floor
+    of its dependency chain."""
+    params = stereo_pll_params()
+    state = torch.tensor([0.0, 0.0, float(params[2])], device=dev)
+    x = fm_like(gen, 1, chunk, dev)[0].contiguous()
+    err = compare_pll(f"graph chunk {chunk}", x, state, params, 2.0)
+    steps = 1 << 20
+    pll.chain_probe(1024, dev)                               # warm-up
+    probe_ms, cycles = pll.chain_probe(steps, dev)
+    ns_step = probe_ms * 1e6 / steps
+    log("K3", f"chain probe: {steps} dependent steps in {probe_ms:.3f} ms, "
+              f"{ns_step:.3f} ns and {cycles / steps:.2f} SM cycles a step")
+    overlap_time(dev, gen, params, chunk)
+    entry = None
+    for n in (chunk, STEREO_S * RATE // 5):
+        xs = x if n == chunk else fm_like(gen, 1, n, dev)[0].contiguous()
+        ms = median_ms(lambda: pll.pll_phase(xs, state, *params, 2.0),
+                       reps=REPS if n == chunk else 5)
+        t_bytes = n * PLL_BYTES / HBM_BYTES_PER_S
+        t_ops = n * PLL_OPS / FP32_FLOP_PER_S
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        floor_ms = n * ns_step / 1e6
+        plain = ""
+        if n == chunk:
+            t0 = time.monotonic()
+            pll.pll_phase_reference(xs, state, *params, 2.0)
+            torch.cuda.synchronize()
+            plain_ms = (time.monotonic() - t0) * 1e3
+            plain = f"; twin {plain_ms:.1f} ms (host clock, one run)"
+            entry = {"name": "pll_phase", "route": "cuda",
+                     "source": "luaradio_tpu_torch/csrc/pll.cu",
+                     "replaces": "luaradio_tpu/ops/pll.py:226",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "library_ms": None, "chain_floor_ms": floor_ms}
+        log("K3", f"[{n} samples] {ms:.4f} ms per launch (median of "
+                  f"{REPS if n == chunk else 5}), {n / ms / 1e3:.2f} M "
+                  f"samples/s; bound {bound_ms:.6f} ms "
+                  f"({n * PLL_BYTES / 1e6:.2f} MB at 3.35 TB/s); chain floor {floor_ms:.4f} ms "
+                  f"({ns_step:.3f} ns a step x {n}); {ms / floor_ms:.2f}x "
+                  f"the floor{plain}")
+    return entry
+
+
+def overlap_time(dev, gen, params, chunk):
+    """The overlap-and-discard tier (not on the stereo path: it plans no
+    segments for the graph's chunk) timed once on a chunk it plans for:
+    2^16 samples of a noisy 19 kHz pilot at the IF rate, cold start."""
+    from luaradio_tpu_torch.ops.pll_overlap import (plan_overlap,
+                                                    pll_overlap_discard)
+    if plan_overlap(chunk, float(params[0])) is not None:
+        raise AssertionError(f"overlap tier plans for the {chunk}-sample "
+                             f"graph chunk")
+    n = 1 << 16
+    lseg, warm = plan_overlap(n, float(params[0]))
+    t = torch.arange(n, device=dev, dtype=torch.float64)
+    x = (torch.polar(torch.ones_like(t), 2 * np.pi * 19e3 / (RATE / 5) * t)
+         + 0.3 * torch.randn(n, generator=gen, device=dev,
+                             dtype=torch.complex128)).to(torch.complex64)
+    state = (0.0, 0.0, float(params[2]))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ok = bool(pll_overlap_discard(x, state, *params, 2, lseg, warm)[0])
+    ms = (time.monotonic() - t0) * 1e3
+    log("overlap", f"no plan for the graph's chunk of {chunk}; on {n} "
+                   f"samples: {n // lseg} segments of {lseg} after {warm} "
+                   f"warm-up steps, {ms:.1f} ms (host clock, one run, "
+                   f"{warm + lseg} steps of [{n // lseg}] tensors), "
+                   f"valid {ok}")
+
+
+def profile_run(run, out, what):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        _, _, wall = run_graph(path, "f32le", wav)
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
     events = prof.key_averages()
     key = ("self_device_time_total"
            if hasattr(events[0], "self_device_time_total")
            else "self_cuda_time_total")
     dev_us = sum(getattr(e, key) for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    table = events.table(sort_by=key, row_limit=25)
+    table = events.table(sort_by=key, row_limit=30)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     with open(out, "w") as f:
         f.write(table)
-    log("profile", f"graph f32 under torch.profiler: run {wall:.4f} s "
+    log("profile", f"{what} under torch.profiler: run {wall:.4f} s "
                    f"(profiler overhead included), device time "
                    f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}"
                    f" % of the profiled run); table in {out}")
@@ -436,14 +757,21 @@ def main(argv):
     k1["launches"] = phase_flagship(dev, x_wire)
     del x_wire
     torch.cuda.empty_cache()
+    profile = profile_path(argv)
     with tempfile.TemporaryDirectory() as tmp:
-        k2 = phase_graph(tmp, profile_path(argv), dev, gen)
+        k2 = phase_graph(tmp, profile, dev, gen)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_err)
-    entries = [k1, k2]
+    k3_err = phase_pll_hold(dev, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        k3_launches, chunk = phase_stereo(tmp, profile)
+    k3 = phase_pll_time(dev, gen, chunk)
+    k3["launches"] = k3_launches
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3_err)
+    entries = [k1, k2, k3]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in entries]}), flush=True)
+    print(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(
+        x for x in e if x not in keys)} for e in entries]}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

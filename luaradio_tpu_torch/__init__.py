@@ -6,9 +6,12 @@ with device blocks running as torch tensor code on a CUDA card and the TPU
 package's Pallas kernels rewritten as CUDA kernels (csrc/).  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 
-This slice holds the rx_wbfm mono receiver end to end: IQ file source,
-tuner, WBFM mono demodulator, downsampler, WAV/IQ/benchmark sinks, the
-graph optimizer, the runtime, and the hand-fused flagship step.
+The port holds the rx_wbfm receiver end to end, mono and stereo: IQ file
+source, tuner, WBFM mono and stereo demodulators (the PLL and its three
+tiers, the vector pilot), downsampler, WAV/IQ/benchmark sinks, the graph
+optimizer, the runtime, the hand-fused flagship step, and the
+application dispatcher and CLI for rx_wbfm (``python -m
+luaradio_tpu_torch.cli``).
 """
 
 __version__ = "0.1.0"

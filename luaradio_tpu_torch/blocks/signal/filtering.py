@@ -136,15 +136,17 @@ class _DesignedFIRBlock(FIRFilterBlock):
     sample rate (like the reference wrappers, which design taps in
     initialize() using the differentiated rate)."""
 
-    def __init__(self, num_taps: int):
-        super().__init__(np.zeros(num_taps, dtype=np.float32))
+    def __init__(self, num_taps: int, complex_taps: bool = False):
+        super().__init__(np.zeros(num_taps, dtype=np.complex64 if complex_taps
+                                  else np.float32))
         self.num_taps = num_taps
 
     def design_taps(self) -> np.ndarray:
         raise NotImplementedError
 
     def initialize(self):
-        self.taps = np.asarray(self.design_taps()).astype(np.float32)
+        dt = np.complex64 if np.iscomplexobj(self.taps) else np.float32
+        self.taps = np.asarray(self.design_taps()).astype(dt)
         super().initialize()
 
 
@@ -160,6 +162,24 @@ class LowpassFilterBlock(_DesignedFIRBlock):
         nyq = self.nyquist or (self.get_rate() / 2.0)
         return filter_design.firwin_lowpass(self.num_taps, self.cutoff / nyq,
                                             self.window)
+
+
+class ComplexBandpassFilterBlock(_DesignedFIRBlock):
+    """Complex (single-sided) bandpass; cutoffs in Hz, negative allowed
+    (reference: complexbandpassfilter.lua)."""
+
+    def __init__(self, num_taps: int, cutoffs, nyquist: float | None = None,
+                 window: str = "hamming"):
+        super().__init__(num_taps, complex_taps=True)
+        self.cutoffs = tuple(cutoffs)
+        self.nyquist = nyquist
+        self.window = window
+
+    def design_taps(self):
+        nyq = self.nyquist or (self.get_rate() / 2.0)
+        return filter_design.firwin_complex_bandpass(
+            self.num_taps, (self.cutoffs[0] / nyq, self.cutoffs[1] / nyq),
+            self.window)
 
 
 def _singlepole_lowpass_coeffs(cutoff: float, rate: float):
@@ -242,7 +262,40 @@ class DecimatingFIRBlock(SignalBlock):
         return np.asarray(self.taps) if self.decimation == 1 else None
 
 
+class HilbertTransformBlock(SignalBlock):
+    """Real -> analytic signal: the real part delayed by the filter's group
+    delay, the imaginary part through the windowed 2/(pi n) FIR
+    (reference: hilberttransform.lua)."""
+
+    def __init__(self, num_taps: int, window: str = "hamming"):
+        super().__init__()
+        if num_taps % 2 == 0:
+            raise ValueError("HilbertTransformBlock requires odd num_taps")
+        self.num_taps = num_taps
+        self.taps = filter_design.fir_hilbert_transform(
+            num_taps, window).astype(np.float32)
+        self.add_type_signature([Input("in", Float32)],
+                                [Output("out", ComplexFloat32)])
+
+    def initialize(self):
+        self._taps = _taps_tensor(self.taps, self.device)
+
+    def init_state(self):
+        return fir_ops.fir_init_state(self.num_taps, torch.float32,
+                                      self.device)
+
+    def process(self, state, x):
+        m = self.num_taps
+        c = (m - 1) // 2
+        xin = torch.cat([state.expand(x.shape[:-1] + state.shape[-1:]), x],
+                        dim=-1)
+        imag, new_tail = fir_ops.fir_direct(x, self._taps, state)
+        real = xin[..., (m - 1) - c:(m - 1) - c + x.shape[-1]]
+        return new_tail, torch.complex(real, imag)
+
+
 __all__ = [
     "FIRFilterBlock", "IIRFilterBlock", "DecimatingFIRBlock",
-    "LowpassFilterBlock", "FMDeemphasisFilterBlock",
+    "LowpassFilterBlock", "ComplexBandpassFilterBlock",
+    "FMDeemphasisFilterBlock", "HilbertTransformBlock",
 ]

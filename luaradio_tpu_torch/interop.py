@@ -12,7 +12,14 @@ stream started in one package can be resumed in the other:
   back into unit-magnitude samples ending at the last sample; the
   discriminator gives back the same outputs up to float32 rounding;
 * a block's state (a tail of input samples, a phase, a filter state):
-  arrays -> tensors, complex kept complex.
+  arrays -> tensors, complex kept complex;
+* a PLLBlock's state (phi_locked, phi_multiplied, freq): the phases
+  wrapped to [-pi, pi], the range the port's sequential kernel converts
+  to int32 turns (the JAX package's CPU loop keeps them in (-2 pi, 2 pi));
+* the leaf blocks of a composite (the stereo demodulator): each JAX
+  block's state into the form its port twin carries, where a JAX FIR
+  above 16 taps keeps the last L input samples of its FFT frame and the
+  port keeps the last M-1.
 """
 
 from __future__ import annotations
@@ -58,5 +65,51 @@ def flagship_state_from_jax(state, inv_gain: float, device=None):
     return (torch.from_numpy(carry.astype(np.complex64)).to(dev),)
 
 
+def pll_state_from_jax(state, device=None):
+    """A JAX PLLBlock's (phi_l, phi_m, freq) -> the port PLLBlock's state:
+    0-dim float32 tensors, phases wrapped to [-pi, pi]."""
+    dev = resolve_device(device)
+    phi_l, phi_m, freq = (np.float64(np.array(s)) for s in state)
+    wrap = lambda p: np.float32(np.angle(np.exp(1j * p)))  # noqa: E731
+    return tuple(torch.tensor(v, dtype=torch.float32, device=dev)
+                 for v in (wrap(phi_l), wrap(phi_m), np.float32(freq)))
+
+
+def state_for_block(block, state, device=None):
+    """A JAX block's state -> the state of ``block``, its port twin (set
+    up already): PLL phases wrapped, sample tails cut to the length the
+    port block carries."""
+    from luaradio_tpu_torch.blocks.signal.carrier import PLLBlock
+    if isinstance(block, PLLBlock):
+        return pll_state_from_jax(state, device)
+    got = block_state_from_jax(state, device)
+    want = block.init_state()
+    if isinstance(want, torch.Tensor) and isinstance(got, torch.Tensor) \
+            and want.dim() and got.dim() and got.shape[-1] > want.shape[-1]:
+        got = got[..., got.shape[-1] - want.shape[-1]:].contiguous()
+    return got
+
+
+def composite_states_from_jax(jax_composite, port_composite, states,
+                              device=None) -> dict:
+    """States of a JAX composite's leaf blocks -> {port leaf block: state}.
+
+    ``states`` maps each JAX leaf block to its state; the leaves of the two
+    composites (built with the same arguments) pair up in flattening
+    order."""
+    jax_leaves = jax_composite._flatten()[0]
+    port_leaves = port_composite._flatten()[0]
+    if len(jax_leaves) != len(port_leaves):
+        raise ValueError(f"{len(jax_leaves)} JAX leaf blocks against "
+                         f"{len(port_leaves)} in the port")
+    out = {}
+    for jb, pb in zip(jax_leaves, port_leaves):
+        if type(jb).__name__ != type(pb).__name__:
+            raise ValueError(f"leaf {jb.name} pairs with {pb.name}")
+        out[pb] = state_for_block(pb, states[jb], device)
+    return out
+
+
 __all__ = ["tensor_from_jax", "block_state_from_jax",
-           "flagship_state_from_jax"]
+           "flagship_state_from_jax", "pll_state_from_jax",
+           "state_for_block", "composite_states_from_jax"]

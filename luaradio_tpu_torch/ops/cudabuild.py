@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("wbfm",)
+SOURCES = ("wbfm", "pll")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
