@@ -7,13 +7,20 @@ Needs one CUDA card and the CUDA toolkit (nvcc): the kernels are built from
 csrc/ on first use.  Phases, each printed with the elapsed seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and count;
-2. build: nvcc builds every kernel source;
+2. build: nvcc builds every kernel source and the measurement build of
+   K1's halves, all at once;
 3. K1 / K2: each kernel at the flagship's full width (8 channels x 4 194 304
-   samples, D = 8, K = 640) and on a ragged chunk, held against its plain
-   PyTorch twin (2e-5 * scale on the audio; the discriminator output,
-   probed with a unit-impulse filter, wrap-aware), timed with CUDA events
-   (median of 25) beside the twin, a conv1d yardstick and the bound; K2
-   also at the chunk shape the README graph gives it (K = 512, D = 5);
+   samples, D = 8, K = 640), on a ragged chunk, on an input 8 bytes off a
+   16-byte boundary and under a compact plan (K = 16 384), held against
+   its plain PyTorch twin (2e-5 * scale on the audio; the discriminator
+   output, probed with a unit-impulse filter, wrap-aware), timed with CUDA
+   events (median of 25) beside the twin, a conv1d yardstick and the
+   bound; K1 also split into its discriminator and FIR halves (a
+   measurement build of csrc/wbfm.cu); the planner's shared memory held
+   against the built kernel's; K2 also at
+   the chunk shape the README graph gives it (K = 512, D = 5), where its
+   device time (CUDA-graph replay) stands beside an empty kernel's launch
+   floor;
 4. flagship: chained steps of the flagship receiver at full width (K1);
 5. graph: the README receiver graph (IQ file -> Tuner -> WBFM mono ->
    Downsampler -> WAV) over a synthetic 4 s FM capture with a 3 kHz tone,
@@ -32,15 +39,22 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    channel's tone > 3x the other's);
 8. K3 timed at the graph's chunk and at one 8 s stream at the IF rate
    (1 764 000 samples), beside its twin, its byte bound and the floor of
-   its dependency chain (a probe kernel that runs only the chain); the
-   overlap-and-discard tier, which plans nothing for the graph's chunk,
-   timed once on a chunk it plans for;
-9. the kernels line and the final status line.
+   its dependency chain (a probe kernel that runs only the chain);
+9. overlap: the overlap-and-discard scan's path, run after phase 7: the
+   stereo graph with the PLL pilot at a chunk size that gives the PLL
+   40 960 samples (5 segments of 8192), where the tier runs, with the L+R
+   tones checked as in phase 7; the scan kernel held against its twin on
+   each chunk the path gave it (valid flags equal, outputs within 1e-6);
+   the graph run again with the twin in the kernel's place, whose L-R
+   (the part the PLL demodulates) must match within 2 LSB.  Then the
+   kernel held against its twin on a 2^16-sample chunk, timed there
+   beside the twin, K3 and its own launch alone;
+10. the kernels line and the final status line.
 
-Launch counts are zeroed just before the flagship, the K2 graph run and
-the stereo CLI run and read just after: each kernel must have run on its
-path.  Any failure raises (non-zero exit); a hang ends the run with a
-traceback after 240 s.  ``--profile PATH`` also writes a torch.profiler
+Launch counts are zeroed just before the flagship, the K2 graph run, the
+stereo CLI run and the overlap path run and read just after: each kernel
+must have run on its path.  Any failure raises (non-zero exit); a hang
+ends the run with a traceback after 240 s.  ``--profile PATH`` also writes a torch.profiler
 table of one mono graph run to PATH and of the stereo run to
 PATH.stereo.txt.
 """
@@ -65,7 +79,7 @@ from luaradio_tpu_torch import (CompositeBlock, DownsamplerBlock,
                                 WBFMMonoDemodulator, WBFMStereoDemodulator)
 from luaradio_tpu_torch import cli
 from luaradio_tpu_torch.blocks.signal import carrier
-from luaradio_tpu_torch.ops import cudabuild, pll, wbfm
+from luaradio_tpu_torch.ops import cudabuild, pll, pll_overlap, wbfm
 from luaradio_tpu_torch.ops.complexutil import (complex_to_wire,
                                                 wire_to_complex)
 from luaradio_tpu_torch.ops.fir import _conv_real
@@ -75,7 +89,7 @@ from luaradio_tpu_torch.parallel.flagship import (INV_GAIN,
 
 T0 = time.monotonic()
 #: a hang ends the run with a traceback after this many seconds; a whole
-#: run, build included, takes well under a minute on the card
+#: run, build included, takes about a minute and a half on the card
 HANG_S = 240
 #: H100 SXM data sheet: HBM rate, and fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -91,13 +105,48 @@ REPS = 25
 #: scale, clip, round; the chain's 14; cos and sin), the span held
 #: against the twin, the stereo capture's length and its tones
 PLL_BYTES, PLL_OPS = 20, 22
+#: the overlap scan's operations a step and segment (atan2, two sin and
+#: two cos as one each; 30 products and sums; clamp)
+OVERLAP_OPS = 36
 PLL_SPAN = 8192
 STEREO_S, NOISE_S = 8, 0.5
+#: the graph chunk (samples at the source) that gives the stereo PLL
+#: 40 960-sample chunks, which plan_overlap splits into segments
+OVERLAP_CHUNK = 204800
 TONE_L, TONE_R = 1000.0, 400.0
 
 
 def log(phase: str, msg: str):
     print(f"[{time.monotonic() - T0:7.1f} s] {phase}: {msg}", flush=True)
+
+
+def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time of one call: ``n`` calls captured in a CUDA graph and
+    replayed ``reps`` times, median replay over ``n``.  Unlike median_ms
+    it counts no host time between launches, which at a small shape is
+    most of a launch's wall time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
 
 
 def median_ms(fn, reps: int = REPS) -> float:
@@ -244,12 +293,75 @@ def phase_kernels(dev, gen):
     probe_discriminator("wbfm_mono", _k1, (complex_to_wire(pxc), pcarry, pm))
     k1.update(measure("wbfm_mono", _k1, _k1_twin, complex_to_wire(xc), carry, taps,
                       D))
+    k1.update(k1_halves(complex_to_wire(xc), carry, taps, k1["ms"]))
+    k1["max_abs_err"] = max(k1["max_abs_err"], compare(
+        "wbfm_mono", _k1, _k1_twin,
+        [("8 bytes off 16", misaligned(complex_to_wire(xc[:, :1 << 20])),
+          carry)], taps))
     k2_err = compare("disc_fir", _k2, _k2_twin,
                      [("full width", xc, carry), ("ragged", rxc, rcarry)],
                      taps)
+    k2_err = max(k2_err, compact_case(dev, gen))
+    check_plans([(C, T, k, D), (C, T_RAGGED, k, D), (1, 52430, 512, 5),
+                 (2, 1 << 16, 16384, 16)])
     probe_discriminator("disc_fir", _k2, (pxc, pcarry, pm))
     measure("disc_fir", _k2, _k2_twin, xc, carry, taps, D)
     return k1, k2_err, complex_to_wire(xc)
+
+
+def misaligned(x):
+    """x copied to a tensor that starts 8 bytes off a 16-byte boundary
+    (the loader's scalar head and tail)."""
+    flat = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+    y = flat[2:].view(x.shape)
+    y.copy_(x)
+    if y.data_ptr() % 16 != 8:
+        raise AssertionError("misaligned copy is aligned")
+    return y
+
+
+def k1_halves(x, carry, taps, ms):
+    """K1's time split into its discriminator and its FIR (the
+    measurement build of csrc/wbfm.cu, wbfm.k1_half; their output is not
+    the audio and they count no launch)."""
+    c, t = x.shape[0], x.shape[1] // 2
+    p = wbfm.plan(c, t, taps.shape[0], D)
+    disc_ms = median_ms(lambda: wbfm.k1_half(carry, x, taps, D, INV_GAIN, p,
+                                             1))
+    fir_ms = median_ms(lambda: wbfm.k1_half(carry, x, taps, D, INV_GAIN, p,
+                                            2))
+    log("wbfm_mono", f"halves under {p}: discriminator alone {disc_ms:.4f} "
+                     f"ms, FIR alone {fir_ms:.4f} ms, both {ms:.4f} ms")
+    return {"disc_ms": disc_ms, "fir_ms": fir_ms}
+
+
+def compact_case(dev, gen):
+    """K2 under a compact plan (16 384 taps at D = 16: one float32 copy of
+    the m ring and the taps), held against the twin."""
+    k, d, t = 16384, 16, 1 << 16
+    p = wbfm.plan(2, t, k, d)
+    if not p.compact:
+        raise AssertionError(f"plan for K={k}, D={d} is not compact: {p}")
+    taps = torch.from_numpy((np.hanning(k) / (k / 2)).astype(np.float32)
+                            ).to(dev)
+    z = fm_like(gen, 2, t + k, dev)
+    return compare("disc_fir", lambda c, x, h: _k2(c, x, h, d),
+                   lambda c, x, h: _k2_twin(c, x, h, d),
+                   [(f"compact plan K={k} D={d}", z[:, k:].contiguous(),
+                     z[:, :k].contiguous())], taps)
+
+
+def check_plans(shapes):
+    """The planner's shared memory against the built kernel's, and the
+    blocks an SM takes under each plan."""
+    for c, t, k, d in shapes:
+        p = wbfm.plan(c, t, k, d)
+        built = wbfm.kernel_smem_bytes(k, d, p)
+        if built != p.smem:
+            raise AssertionError(f"plan {p}: kernel needs {built} bytes of "
+                                 f"shared memory, the planner says {p.smem}")
+        log("plan", f"[{c} x {t}, K={k}, D={d}] {p}: {p.strips * c} blocks, "
+                    f"{wbfm.occupancy(k, d, p)} a SM")
 
 
 def k2_graph_shape(dev, gen, path):
@@ -277,9 +389,18 @@ def k2_graph_shape(dev, gen, path):
              "source": "luaradio_tpu_torch/csrc/wbfm.cu",
              "replaces": "luaradio_tpu/ops/wbfm_pallas.py:335",
              "max_abs_err": err}
-    entry.update(measure("disc_fir", lambda c, xx, h: _k2(c, xx, h, d),
+    run = lambda c, xx, h: _k2(c, xx, h, d)  # noqa: E731
+    entry.update(measure("disc_fir", run,
                          lambda c, xx, h: _k2_twin(c, xx, h, d), x, carry,
                          blk._taps, d))
+    entry["device_ms"] = graph_ms(lambda: run(carry, x, blk._taps))
+    entry["launch_floor_ms"] = median_ms(lambda: wbfm.empty_launch(dev))
+    entry["launch_floor_device_ms"] = graph_ms(lambda: wbfm.empty_launch(dev))
+    log("disc_fir", f"graph chunk [1 x {t}]: {entry['ms']:.4f} ms a launch, "
+                    f"{entry['device_ms']:.4f} ms device time (CUDA-graph "
+                    f"replay); empty kernel {entry['launch_floor_ms']:.4f} ms "
+                    f"a launch, {entry['launch_floor_device_ms']:.4f} ms "
+                    f"device time; {wbfm.plan(1, t, k, d)}")
     return entry
 
 
@@ -524,16 +645,28 @@ def read_wav(path):
     return pcm.reshape(-1, nch), rate
 
 
-def record_pll_chunks():
+def record_pll_chunks(scanned=None):
     """Wrap PLLBlock.process to record (chunk length, tier) of every chunk
-    a PLL runs; returns the list and a function that unwraps it."""
+    a PLL runs; returns the list and a function that unwraps it.  Given a
+    list ``scanned``, also appends (x, state, params) of every chunk on
+    which the overlap scan kernel launched, copied as the chunk entered
+    the block: the inputs the path gave the kernel."""
     seen, process = [], carrier.PLLBlock.process
 
     def recording(self, state, x):
         before = dict(self.tier_counts)
+        if scanned is not None:
+            n0 = pll_overlap.pll_overlap_discard.launches
+            copy = (x.clone(), tuple(torch.as_tensor(v).clone()
+                                     for v in state))
         out = process(self, state, x)
         seen.append((x.shape[-1], [k for k in self.tier_counts
                                    if self.tier_counts[k] != before[k]]))
+        if scanned is not None \
+                and pll_overlap.pll_overlap_discard.launches > n0:
+            scanned.append(copy + ((self._alpha, self._beta,
+                                    self._freq_min, self._freq_max,
+                                    int(self.multiplier)),))
         return out
     carrier.PLLBlock.process = recording
 
@@ -551,7 +684,8 @@ def run_stereo_cli(path, wav):
 
 def phase_stereo(tmp, profile):
     """rx_wbfm's default stereo receiver through the CLI, then the vector
-    pilot graph by hand.  Returns (K3 launches, the PLL's chunk length)."""
+    pilot graph by hand, then the overlap tier's path.  Returns (K3
+    launches, the PLL's chunk length, phase_overlap_path's result)."""
     path, n = write_stereo_capture(tmp)
     log("stereo", f"capture: {n} samples ({STEREO_S} s) at {RATE} S/s, "
                   f"f32le, {os.path.getsize(path) / 1e6:.1f} MB; noise "
@@ -598,16 +732,7 @@ def phase_stereo(tmp, profile):
                     f"{profile}.stereo.txt", "stereo CLI")
 
     vwav = os.path.join(tmp, "vector.wav")
-    top = CompositeBlock()
-    demod = WBFMStereoDemodulator(pilot="vector")
-    l_ds, r_ds = DownsamplerBlock(5), DownsamplerBlock(5)
-    sink = WAVFileSink(vwav, 2)
-    top.connect(IQFileSource(path, "f32le", RATE),
-                TunerBlock(0, 200e3, 5), demod)
-    top.connect(demod, "left", l_ds, "in")
-    top.connect(demod, "right", r_ds, "in")
-    top.connect(l_ds, "out", sink, "in1")
-    top.connect(r_ds, "out", sink, "in2")
+    top = stereo_graph(path, vwav, pilot="vector")
     t0 = time.monotonic()
     top.run()
     vdt = time.monotonic() - t0
@@ -620,7 +745,129 @@ def phase_stereo(tmp, profile):
     log("stereo", f"vector-pilot graph: L/R separation {vsep[0]:.1f} / "
                   f"{vsep[1]:.1f} dB (limit {20 * np.log10(3):.2f} dB each, "
                   f"3x), {n / vdt / 1e6:.2f} M complex samples/s end to end")
-    return launches, seen[0][0]
+    return launches, seen[0][0], phase_overlap_path(path, n, rate, want)
+
+
+def stereo_graph(path, wav, pilot="pll"):
+    """rx_wbfm's stereo receiver built by hand: IQ file -> Tuner ->
+    WBFMStereoDemodulator -> two Downsamplers -> stereo WAV."""
+    top = CompositeBlock()
+    demod = WBFMStereoDemodulator(pilot=pilot)
+    l_ds, r_ds = DownsamplerBlock(5), DownsamplerBlock(5)
+    sink = WAVFileSink(wav, 2)
+    top.connect(IQFileSource(path, "f32le", RATE),
+                TunerBlock(0, 200e3, 5), demod)
+    top.connect(demod, "left", l_ds, "in")
+    top.connect(demod, "right", r_ds, "in")
+    top.connect(l_ds, "out", sink, "in1")
+    top.connect(r_ds, "out", sink, "in2")
+    return top
+
+
+def phase_overlap_path(path, n, rate, want):
+    """The overlap tier's path: the PLL-pilot stereo graph at a chunk size
+    that gives the PLL 40 960 samples, which plan_overlap splits into 5
+    segments of 8192; the noise and acquisition chunks fail the linear
+    tier and take the overlap scan.  Then the scan kernel held against its
+    twin on the very chunks the path gave it, and the graph run again with
+    the twin in the kernel's place, whose L-R (which the PLL's doubled
+    pilot demodulates; L+R does not pass through it) must match.  Returns
+    (the scan kernel's launches, its largest error)."""
+    tmp = os.path.dirname(path)
+    wav = os.path.join(tmp, "overlap.wav")
+    stereo_graph(path, os.path.join(tmp, "warm2.wav")).run(
+        chunk_size=OVERLAP_CHUNK, max_chunks=2)                  # warm-up
+    scanned = []
+    seen, restore = record_pll_chunks(scanned)
+    try:
+        pll_overlap.pll_overlap_discard.launches = 0
+        pll.pll_phase.launches = 0
+        t0 = time.monotonic()
+        stereo_graph(path, wav).run(chunk_size=OVERLAP_CHUNK)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        launches = pll_overlap.pll_overlap_discard.launches
+        k3 = pll.pll_phase.launches
+    finally:
+        restore()
+    tiers = [t[0] for _, t in seen]
+    pcm, _ = read_wav(wav)
+    if launches < 1 or pcm.shape != (want, 2) or seen[0][0] % 8192 \
+            or len(scanned) != launches:
+        raise AssertionError(f"overlap path: {launches} scan launches over "
+                             f"PLL chunks of {seen[0][0]} ({len(scanned)} "
+                             f"recorded), WAV {pcm.shape}")
+    mono = pcm[:, 0].astype(np.float64) + pcm[:, 1]
+    for tone in (TONE_L, TONE_R):
+        f, snr = tone_snr(mono, rate, tone)
+        if abs(f - tone) > 50 or snr <= 1e4:
+            raise AssertionError(f"overlap path: L+R tone {tone} Hz found "
+                                 f"at {f:.1f} Hz with SNR {snr:.3g}")
+    log("overlap", f"path: PLL-pilot stereo graph at chunk_size "
+                   f"{OVERLAP_CHUNK}, {len(seen)} PLL chunks of {seen[0][0]}"
+                   f" (tiers: linear {tiers.count(1)}, overlap "
+                   f"{tiers.count(2)}, sequential {tiers.count(3)}); scan "
+                   f"launches {launches}, K3 launches {k3}; L+R tones held; "
+                   f"{n / dt / 1e6:.2f} M complex samples/s end to end")
+    err = max(hold_overlap(f"path chunk {i}", x, state, params)[0]
+              for i, (x, state, params) in enumerate(scanned))
+    twin_wav = os.path.join(tmp, "overlap_twin.wav")
+    kernel = pll_overlap.pll_overlap_discard
+    twin_seen, restore = record_pll_chunks()
+    pll_overlap.pll_overlap_discard = \
+        pll_overlap.pll_overlap_discard_reference
+    try:
+        t0 = time.monotonic()
+        stereo_graph(path, twin_wav).run(chunk_size=OVERLAP_CHUNK)
+        twin_dt = time.monotonic() - t0
+    finally:
+        pll_overlap.pll_overlap_discard = kernel
+        restore()
+    tpcm, _ = read_wav(twin_wav)
+    side = pcm[:, 0].astype(np.int32) - pcm[:, 1]
+    twin_side = tpcm[:, 0].astype(np.int32) - tpcm[:, 1]
+    d_side = int(np.abs(side - twin_side).max())
+    twin_tiers = [t[0] for _, t in twin_seen]
+    if tpcm.shape != pcm.shape or twin_tiers != tiers or d_side > 2:
+        raise AssertionError(f"overlap path: twin-run graph tiers "
+                             f"{twin_tiers} vs {tiers}, WAV {tpcm.shape}, "
+                             f"max |L-R - twin's L-R| {d_side} LSB (limit "
+                             f"2)")
+    log("overlap", f"path with the twin in the scan's place: the same "
+                   f"tiers; L-R (rms {side.std():.1f} LSB) off the twin "
+                   f"run's by at most {d_side} LSB (limit 2, 0 expected); "
+                   f"twin-run graph {twin_dt:.1f} s against {dt:.1f} s")
+    return launches, err
+
+
+def hold_overlap(label, x, state, params):
+    """The overlap scan kernel against its twin on one chunk, as
+    pll_hybrid calls it (the chunk's plan_overlap plan).  They round
+    every operation alike and call the same atan2f/sinf/cosf, so valid
+    flags must be equal and outputs and state agree within 1e-6 (0
+    expected).  Returns the largest error and the twin's time (host
+    clock, one run, in ms)."""
+    n = x.shape[-1]
+    lseg, warm = pll_overlap.plan_overlap(n, float(params[0]))
+    got = pll_overlap.pll_overlap_discard(x, state, *params, lseg, warm)
+    t0 = time.monotonic()
+    exp = pll_overlap.pll_overlap_discard_reference(x, state, *params,
+                                                    lseg, warm)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    errs = [(got[2] - exp[2]).abs().max().item(),
+            (got[3] - exp[3]).abs().max().item(),
+            max(abs(float(a) - float(b)) for a, b in zip(got[1], exp[1]))]
+    if bool(got[0]) != bool(exp[0]) or max(errs) > 1e-6:
+        raise AssertionError(f"overlap {label}: valid {bool(got[0])} vs "
+                             f"{bool(exp[0])}, |kernel - twin| (out, err, "
+                             f"state) = {errs} > 1e-6")
+    log("overlap", f"{label} [{n} samples, {n // lseg} segments of {lseg} "
+                   f"after {warm} warm-up steps]: valid {bool(got[0])} "
+                   f"(twin {bool(exp[0])}); max |kernel - twin| (out, err, "
+                   f"state) {errs[0]:.3g} / {errs[1]:.3g} / {errs[2]:.3g} "
+                   f"(limit 1e-6); twin {plain_ms:.1f} ms")
+    return max(errs), plain_ms
 
 
 def phase_pll_time(dev, gen, chunk):
@@ -637,7 +884,6 @@ def phase_pll_time(dev, gen, chunk):
     ns_step = probe_ms * 1e6 / steps
     log("K3", f"chain probe: {steps} dependent steps in {probe_ms:.3f} ms, "
               f"{ns_step:.3f} ns and {cycles / steps:.2f} SM cycles a step")
-    overlap_time(dev, gen, params, chunk)
     entry = None
     for n in (chunk, STEREO_S * RATE // 5):
         xs = x if n == chunk else fm_like(gen, 1, n, dev)[0].contiguous()
@@ -671,31 +917,61 @@ def phase_pll_time(dev, gen, chunk):
     return entry
 
 
-def overlap_time(dev, gen, params, chunk):
-    """The overlap-and-discard tier (not on the stereo path: it plans no
-    segments for the graph's chunk) timed once on a chunk it plans for:
-    2^16 samples of a noisy 19 kHz pilot at the IF rate, cold start."""
-    from luaradio_tpu_torch.ops.pll_overlap import (plan_overlap,
-                                                    pll_overlap_discard)
-    if plan_overlap(chunk, float(params[0])) is not None:
+def phase_overlap_hold(dev, gen, chunk):
+    """The overlap-and-discard scan kernel against its twin on 2^16
+    samples of a noisy 19 kHz pilot at the IF rate, cold start (a chunk
+    plan_overlap plans for: 8 segments of 8192 after 1585 warm-up steps).
+    They round every operation alike and call the same atan2f/sinf/cosf,
+    so valid flags must be equal and outputs and state agree within 1e-6
+    (0 expected).  Then kernel, twin and K3 timed on the same chunk, and
+    the scan's launch alone (without the torch set-up and chaining
+    around it) for its time a serial step.  The byte and operation bound
+    does not bind: each segment is a chain of W+L dependent steps.
+    Returns the kernels-line entry."""
+    params = stereo_pll_params()
+    if plan_overlap_for(chunk, params) is not None:
         raise AssertionError(f"overlap tier plans for the {chunk}-sample "
                              f"graph chunk")
     n = 1 << 16
-    lseg, warm = plan_overlap(n, float(params[0]))
+    lseg, warm = plan_overlap_for(n, params)
     t = torch.arange(n, device=dev, dtype=torch.float64)
     x = (torch.polar(torch.ones_like(t), 2 * np.pi * 19e3 / (RATE / 5) * t)
          + 0.3 * torch.randn(n, generator=gen, device=dev,
                              dtype=torch.complex128)).to(torch.complex64)
     state = (0.0, 0.0, float(params[2]))
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    ok = bool(pll_overlap_discard(x, state, *params, 2, lseg, warm)[0])
-    ms = (time.monotonic() - t0) * 1e3
-    log("overlap", f"no plan for the graph's chunk of {chunk}; on {n} "
-                   f"samples: {n // lseg} segments of {lseg} after {warm} "
-                   f"warm-up steps, {ms:.1f} ms (host clock, one run, "
-                   f"{warm + lseg} steps of [{n // lseg}] tensors), "
-                   f"valid {ok}")
+    err, plain_ms = hold_overlap("2^16 chunk", x, state, (*params, 2))
+    ms = median_ms(lambda: pll_overlap.pll_overlap_discard(
+        x, state, *params, 2, lseg, warm), reps=5)
+    kstate = torch.tensor(state, device=dev)
+    k3_ms = median_ms(lambda: pll.pll_phase(x, kstate, *params, 2.0), reps=5)
+    s = n // lseg
+    steps = warm + lseg
+    init = pll_overlap._initial_states(x, state, s, lseg, warm)
+    consts = tuple(float(np.float32(v)) for v in (*params, 2))
+    scan_ms = median_ms(lambda: pll_overlap._scan_kernel(
+        x, init, consts, lseg, warm), reps=5)
+    nbytes = n * 8 + 5 * s * 4 + 3 * n * 4 + 10 * s * 4
+    ops = steps * s * OVERLAP_OPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    log("overlap", f"2^16 chunk: kernel {ms:.3f} ms (median of 5, the torch "
+                   f"set-up and chaining included), twin {plain_ms:.1f} ms "
+                   f"(host clock, one run), K3 on the same chunk "
+                   f"{k3_ms:.3f} ms (median of 5); the scan's launch alone "
+                   f"{scan_ms:.3f} ms, {steps} serial steps a segment, "
+                   f"{scan_ms * 1e6 / steps:.1f} ns a step")
+    return {"name": "pll_overlap_discard", "route": "cuda",
+            "source": "luaradio_tpu_torch/csrc/pll_overlap.cu",
+            "replaces": "luaradio_tpu/ops/pll_overlap.py:74 (lax.scan)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "bound_binds": False,
+            "k3_same_chunk_ms": k3_ms, "scan_ms": scan_ms,
+            "serial_steps": steps, "ns_per_step": scan_ms * 1e6 / steps}
+
+
+def plan_overlap_for(n, params):
+    return pll_overlap.plan_overlap(n, float(params[0]))
 
 
 def profile_run(run, out, what):
@@ -746,10 +1022,10 @@ def main(argv):
                   f"{torch.version.cuda}")
 
     t0 = time.monotonic()
-    built = cudabuild.build()
+    built = cudabuild.build(cudabuild.SOURCES + tuple(cudabuild.PROBES))
     for src, (secs, out) in built.items():
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
-        log("build", f"csrc/{src}.cu in {secs:.2f} s: {'; '.join(regs)}")
+        log("build", f"{src} in {secs:.2f} s: {'; '.join(regs)}")
     log("build", f"all kernels ready in {time.monotonic() - t0:.2f} s")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -763,11 +1039,15 @@ def main(argv):
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_err)
     k3_err = phase_pll_hold(dev, gen)
     with tempfile.TemporaryDirectory() as tmp:
-        k3_launches, chunk = phase_stereo(tmp, profile)
+        k3_launches, chunk, (overlap_launches, path_err) = phase_stereo(
+            tmp, profile)
     k3 = phase_pll_time(dev, gen, chunk)
     k3["launches"] = k3_launches
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_err)
-    entries = [k1, k2, k3]
+    overlap = phase_overlap_hold(dev, gen, chunk)
+    overlap["launches"] = overlap_launches
+    overlap["max_abs_err"] = max(overlap["max_abs_err"], path_err)
+    entries = [k1, k2, k3, overlap]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(

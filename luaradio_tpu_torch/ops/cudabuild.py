@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 plain ``nvcc`` builds it in seconds into ``_build/lib<name>-<hash>.so``,
 keyed by a hash of the sources and flags: a changed source builds anew, an
-unchanged one loads the library already there.  The library is written
+unchanged one loads the library already there.  A measurement build
+(``PROBES``) compiles a source again with extra defines into a library of
+its own; nothing on the receiver's path loads one.  The library is written
 under a temporary name and renamed into place, so concurrent builds need
 no lock and a build cut short leaves nothing that is loaded later.
 """
@@ -24,7 +26,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("wbfm", "pll")
+SOURCES = ("wbfm", "pll", "pll_overlap")
+#: measurement builds: name -> (source, extra nvcc flags).  wbfm_parts
+#: holds K1's discriminator and FIR halves alone (chip_smoke.py,
+#: scratch/wbfm_ab.py)
+PROBES = {"wbfm_parts": ("wbfm", ("-DLR_WBFM_PARTS",))}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -43,8 +49,14 @@ def nvcc() -> str:
                        "use and need the CUDA toolkit")
 
 
+def _source(name: str) -> tuple[str, tuple[str, ...]]:
+    """(source name, nvcc flags) of a library name."""
+    src, extra = PROBES.get(name, (name, ()))
+    return src, NVCC_FLAGS + extra
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_source(name)[1]).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -52,8 +64,9 @@ def library_path(name: str) -> Path:
 
 
 def build(names=SOURCES) -> dict[str, tuple[float, str]]:
-    """Compile every named source that has no library yet, all nvcc
-    processes started together.  Returns {name: (seconds, compiler
+    """Compile every named library (a source, or a measurement build of
+    ``PROBES``) that has no library yet, all nvcc processes started
+    together.  Returns {name: (seconds, compiler
     output)} for the ones built; raises with the compiler's output if one
     fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -63,7 +76,8 @@ def build(names=SOURCES) -> dict[str, tuple[float, str]]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        src, flags = _source(name)
+        cmd = [nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{src}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.monotonic())
@@ -72,7 +86,7 @@ def build(names=SOURCES) -> dict[str, tuple[float, str]]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+            raise RuntimeError(f"nvcc failed for {name} "
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, out)
         done[name] = (time.monotonic() - t0, log)
@@ -80,7 +94,8 @@ def build(names=SOURCES) -> dict[str, tuple[float, str]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library ``name`` (``csrc/<name>.cu`` or a measurement
+    build), built first if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -101,4 +116,5 @@ def check(lib: ctypes.CDLL, code: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-__all__ = ["build", "load", "check", "library_path", "nvcc", "SOURCES"]
+__all__ = ["build", "load", "check", "library_path", "nvcc", "SOURCES",
+           "PROBES"]

@@ -18,7 +18,10 @@ host exactly as the TPU kernel computes them, and every product and sum of
 the chain is rounded on its own, so kernel and twin agree on err and
 phi_m.  The TPU kernel's 512-sample grid blocks round the frequency to a
 whole turn unit between blocks; the port carries it in float throughout
-(the blocking existed for the TPU's scalar core).
+(the blocking existed for the TPU's scalar core).  Held against the TPU
+kernel over four blocks of a slow loop, where the rounding can show, the
+two depart by 2.4e-7 in err and 0 in the frequency
+(tests/test_torch_pll.py).
 
 The twin's chain has no tensor form: it walks the samples in Python with
 float32 and explicitly wrapped 32-bit integer arithmetic (numpy scalars,

@@ -4,20 +4,42 @@ segments (the JAX package's ops/pll_overlap.py, in torch).
 The loop is contractive: both eigenvalues of its small-signal matrix have
 |lambda| ~ 1 - alpha/2, so a segment started W samples early from a guessed
 state has forgotten the guess after the warm-up.  The chunk is split into
-S segments of L samples; all S run together as one Python loop over W+L
-steps of [S]-wide tensors (the reference's per-sample loop, pll.lua:138-167,
-vectorized over segments instead of samples), the warm-up outputs are
-discarded, and exactness is checked, not assumed: each segment's state
-entering its first real sample must match its left neighbour's exit state
-within a tolerance derived from the contraction bound.  One failed
-boundary invalidates the chunk, and the caller runs the exact sequential
-kernel instead (ops/pll_linear.py pll_hybrid).
+S segments of L samples, all S run together over W+L steps (the
+reference's per-sample loop, pll.lua:138-167, batched over segments
+instead of samples), the warm-up outputs are discarded, and exactness is
+checked, not assumed: each segment's state entering its first real sample
+must match its left neighbour's exit state within a tolerance derived from
+the contraction bound.  One failed boundary invalidates the chunk, and the
+caller runs the exact sequential kernel instead (ops/pll_linear.py
+pll_hybrid).
+
+The scan runs as one CUDA kernel launch for CUDA tensors (csrc/
+pll_overlap.cu, one thread per segment; the port's own kernel for the JAX
+package's lax.scan) and as its plain twin, a Python loop over the steps of
+[S]-wide tensors, for CPU tensors; any other device raises.  The set-up,
+the boundary check and the chaining are torch on both paths.
+``pll_overlap_discard.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from luaradio_tpu_torch.ops import cudabuild
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    lib = cudabuild.load("pll_overlap")
+    if not lib.lr_pll_overlap_scan.argtypes:
+        lib.lr_pll_overlap_scan.argtypes = [_VP, _I, _I, _I, _VP] + \
+            [_F] * 5 + [_VP] * 6
+        lib.lr_pll_overlap_scan.restype = ctypes.c_int
+    return lib
 
 
 def plan_overlap(n: int, alpha: float, decay: float = 12.0,
@@ -48,51 +70,47 @@ def _unit(z: torch.Tensor) -> torch.Tensor:
                        torch.ones_like(z))
 
 
-def pll_overlap_discard(x, state, alpha, beta, fmin, fmax, mult,
-                        lseg: int, warm: int, tol_phase: float = 0.02,
-                        tol_freq: float = 0.005):
-    """Run the exact PLL recurrence over x complex64 [N] as S = N/L
-    concurrent segments.
-
-    Returns (valid, new_state, out [N] complex64, err [N] float32), with
-    ``valid`` a bool tensor; when it is False the outputs are not to be
-    trusted and the caller must use the sequential kernel.  ``state`` is
-    (phi_l, phi_m, freq)."""
+def _initial_states(x, state, s: int, lseg: int, warm: int):
+    """[5, S] float32 (vr, vi, mr, mi, fr): segment 0 takes the true
+    carry; the others guess the VCO on the phase of their first warm-up
+    sample, x[s*L - W], and take the carried frequency."""
     f32 = torch.float32
     dev = x.device
-    alpha, beta, fmin, fmax, multf = (float(np.float32(v)) for v in
-                                      (alpha, beta, fmin, fmax, mult))
-    n = x.shape[-1]
-    s = n // lseg
     p0, m0, f0 = (torch.as_tensor(v, dtype=f32, device=dev) for v in state)
+    fhat = _unit(torch.cat([x.new_zeros(1), x[lseg - warm::lseg][:s - 1]]))
+    is0 = torch.arange(s, device=dev) == 0
+    one = torch.ones(s, dtype=f32, device=dev)
+    return torch.stack([torch.where(is0, torch.cos(p0), fhat.real),
+                        torch.where(is0, torch.sin(p0), fhat.imag),
+                        torch.where(is0, torch.cos(m0), one),
+                        torch.where(is0, torch.sin(m0), 0 * one),
+                        f0.expand(s)]).contiguous()
 
+
+def _scan_reference(x, init, consts, lseg: int, warm: int):
+    """The batched scan in plain PyTorch, one Python step at a time over
+    [S]-wide tensors.  Returns o_r, o_i, o_e [L, S], the state entering
+    step W and the exit state, each [5, S]."""
+    alpha, beta, fmin, fmax, multf = consts
+    s = init.shape[1]
+    f32 = torch.float32
     # per-segment inputs [S, W+L]: W samples of the left neighbour's tail
     # (zeros for segment 0, whose warm-up is masked off anyway)
     xpad = torch.cat([x.new_zeros(warm), x])[:s * lseg]
     seg = torch.cat([xpad.reshape(s, lseg)[:, :warm], x.reshape(s, lseg)],
                     dim=1)
-
-    # initial states: segment 0 takes the true carry; the others guess the
-    # VCO on the first warm-up sample's phase and the carried frequency
-    fhat = _unit(seg[:, 0])
-    is0 = torch.arange(s, device=dev) == 0
-    vr = torch.where(is0, torch.cos(p0), fhat.real)
-    vi = torch.where(is0, torch.sin(p0), fhat.imag)
-    mr = torch.where(is0, torch.cos(m0), torch.ones_like(vr))
-    mi = torch.where(is0, torch.sin(m0), torch.zeros_like(vr))
-    fr = f0.expand(s).clone()
-
+    vr, vi, mr, mi, fr = init.unbind(0)
+    not0 = torch.arange(s, device=x.device) != 0
     xr_all = seg.real.t().contiguous()                     # [W+L, S]
     xi_all = seg.imag.t().contiguous()
-    o_r = torch.empty(lseg, s, dtype=f32, device=dev)
+    o_r = torch.empty(lseg, s, dtype=f32, device=x.device)
     o_i = torch.empty_like(o_r)
     o_e = torch.empty_like(o_r)
-    not0 = ~is0
     for i in range(warm + lseg):
         if i == warm:
             # the state ENTERING the first post-warm-up sample: the
             # boundary state the left neighbour must reproduce
-            snap = [vr, vi, mr, mi, fr]
+            snap = torch.stack([vr, vi, mr, mi, fr])
         xr, xim = xr_all[i], xi_all[i]
         pr = xr * vr + xim * vi
         pi_ = xim * vr - xr * vi
@@ -119,7 +137,48 @@ def pll_overlap_discard(x, state, alpha, beta, fmin, fmax, mult,
             mr = torch.where(not0, mr2 * gm, mr)
             mi = torch.where(not0, mi2 * gm, mi)
             fr = torch.where(not0, f3, fr)
-    svr, svi, smr, smi, sfr = snap
+    return o_r, o_i, o_e, snap, torch.stack([vr, vi, mr, mi, fr])
+
+
+def _scan_kernel(x, init, consts, lseg: int, warm: int):
+    """The batched scan as one launch of csrc/pll_overlap.cu; returns as
+    :func:`_scan_reference`."""
+    s = init.shape[1]
+    o_r = torch.empty(lseg, s, dtype=torch.float32, device=x.device)
+    o_i = torch.empty_like(o_r)
+    o_e = torch.empty_like(o_r)
+    snap = torch.empty_like(init)
+    fin = torch.empty_like(init)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.lr_pll_overlap_scan(
+            x.data_ptr(), s, lseg, warm, init.data_ptr(), *consts,
+            o_r.data_ptr(), o_i.data_ptr(), o_e.data_ptr(), snap.data_ptr(),
+            fin.data_ptr(), stream)
+    cudabuild.check(lib, code, "pll_overlap_discard")
+    pll_overlap_discard.launches += 1
+    return o_r, o_i, o_e, snap, fin
+
+
+def _run(scan, x, state, alpha, beta, fmin, fmax, mult, lseg, warm,
+         tol_phase, tol_freq):
+    if x.dim() != 1 or x.dtype != torch.complex64 or not x.is_contiguous():
+        raise ValueError(f"x: want contiguous complex64 [N], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    n = x.shape[-1]
+    if n % lseg or n < 2 * lseg or not 0 <= warm <= lseg:
+        raise ValueError(f"{n} samples do not split into segments of {lseg} "
+                         f"after {warm} warm-up steps")
+    s = n // lseg
+    dev = x.device
+    # (alpha, beta, fmin, fmax, mult), each rounded to float32
+    consts = tuple(float(np.float32(v))
+                   for v in (alpha, beta, fmin, fmax, mult))
+    init = _initial_states(x, state, s, lseg, warm)
+    o_r, o_i, o_e, snap, fin = scan(x, init, consts, lseg, warm)
+    vr, vi, mr, mi, fr = fin.unbind(0)
+    svr, svi, smr, smi, sfr = snap.unbind(0)
 
     # boundary check: segment s-1's exit state against segment s's entry
     # state after the warm-up, VCO phasor and frequency.  The multiplied
@@ -146,4 +205,37 @@ def pll_overlap_discard(x, state, alpha, beta, fmin, fmax, mult,
     return valid, new_state, out, err
 
 
-__all__ = ["plan_overlap", "pll_overlap_discard"]
+def pll_overlap_discard_reference(x, state, alpha, beta, fmin, fmax, mult,
+                                  lseg: int, warm: int,
+                                  tol_phase: float = 0.02,
+                                  tol_freq: float = 0.005):
+    """Plain twin of :func:`pll_overlap_discard`, on any device: the scan
+    as a Python loop over the W+L steps."""
+    return _run(_scan_reference, x, state, alpha, beta, fmin, fmax, mult,
+                lseg, warm, tol_phase, tol_freq)
+
+
+def pll_overlap_discard(x, state, alpha, beta, fmin, fmax, mult,
+                        lseg: int, warm: int, tol_phase: float = 0.02,
+                        tol_freq: float = 0.005):
+    """Run the exact PLL recurrence over x complex64 [N] as S = N/L
+    concurrent segments.
+
+    Returns (valid, new_state, out [N] complex64, err [N] float32), with
+    ``valid`` a bool tensor; when it is False the outputs are not to be
+    trusted and the caller must use the sequential kernel.  ``state`` is
+    (phi_l, phi_m, freq)."""
+    if x.device.type == "cpu":
+        return pll_overlap_discard_reference(x, state, alpha, beta, fmin,
+                                             fmax, mult, lseg, warm,
+                                             tol_phase, tol_freq)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _run(_scan_kernel, x, state, alpha, beta, fmin, fmax, mult, lseg,
+                warm, tol_phase, tol_freq)
+
+
+pll_overlap_discard.launches = 0
+
+__all__ = ["plan_overlap", "pll_overlap_discard",
+           "pll_overlap_discard_reference"]

@@ -32,7 +32,7 @@ from luaradio_tpu_torch.ops.pll import (  # noqa: E402
     pll_phase, pll_phase_reference)
 from luaradio_tpu_torch.ops.pll_linear import pll_linear  # noqa: E402
 from luaradio_tpu_torch.ops.pll_overlap import (  # noqa: E402
-    plan_overlap, pll_overlap_discard)
+    plan_overlap, pll_overlap_discard, pll_overlap_discard_reference)
 from luaradio_tpu_torch.ops.scan import linrec_first_order  # noqa: E402
 
 # the JAX package's tiers, compiled once (op-by-op dispatch is slow)
@@ -110,6 +110,52 @@ def test_k3_twin_matches_pallas_interpret(case, mult):
     ~2e-8 rad a sample (1e-5 over these 512 samples)."""
     alpha, beta, fmin, fmax = _params()
     x = _case(case)
+    st = np.array([0.3, -0.5, (fmin + fmax) / 2], np.float32)
+    xp = jnp.asarray(np.stack([x.real, x.imag]))
+    out, err, ns = pll_pallas(xp, jnp.asarray(st), alpha, beta, fmin, fmax,
+                              mult, interpret=True)
+    got_out, got_err, got_st = _twin(x, st, alpha, beta, fmin, fmax, mult)
+    assert np.max(np.abs(got_err - np.asarray(err[0]))) <= 1e-6
+    exp_out = np.asarray(out[0]) + 1j * np.asarray(out[1])
+    assert np.max(np.abs(got_out - exp_out)) <= 2e-5
+    exp_st = np.asarray(ns)
+    assert np.max(_wrapped(got_st[:2] - exp_st[:2])) <= 2e-5
+    assert abs(got_st[2] - exp_st[2]) <= 1e-6
+
+
+def _slow_case(name, n=2048):
+    """N = 2048 (four of the TPU kernel's 512-sample grid blocks) for a
+    slow loop: noise, a carrier at 700 Hz (4.4e-3 rad a sample) and one at
+    0.21 cycles a sample, which the loop clamps to fmax."""
+    rng = np.random.default_rng(29 + ("noise", "slow carrier",
+                                      "fast carrier").index(name))
+    t = np.arange(n)
+    noise = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    if name == "noise":
+        x = noise
+    elif name == "slow carrier":
+        x = 0.7 * np.exp(1j * (2 * np.pi * 700 / 1e6 * t + 0.4)) \
+            + 0.1 * noise
+    else:
+        x = 0.7 * np.exp(1j * (2 * np.pi * 0.21 * t + 0.9))
+    return x.astype(np.complex64)
+
+
+@pytest.mark.parametrize("mult", MULTS)
+@pytest.mark.parametrize("case", ["noise", "slow carrier", "fast carrier"])
+def test_k3_twin_matches_pallas_interpret_across_blocks(case, mult):
+    """K3's grid-block rounding.  With N a multiple of 512 the TPU kernel
+    rounds the frequency fk (turn units) to an integer between its grid
+    blocks (luaradio_tpu/ops/pll.py:221, :240); the port carries fk in
+    float through the chunk.  Only |fk| < 2^23 (|freq| < ~0.0123 rad a
+    sample) can tell, so this loop runs at fmin/fmax = 200/1200 Hz at
+    1 MS/s (1.3e-3 / 7.5e-3 rad a sample) over four blocks.  Measured
+    departure over these 12 cases: err 2.4e-7, frequency 0, out 1.4e-6;
+    inside the same limits as the one-block test (err and frequency 1e-6,
+    out and phi_m 2e-5), so the port keeps the float fk."""
+    alpha, beta, fmin, fmax = _params(lo=200, hi=1200)
+    assert abs(fmax) < 0.0123
+    x = _slow_case(case)
     st = np.array([0.3, -0.5, (fmin + fmax) / 2], np.float32)
     xp = jnp.asarray(np.stack([x.real, x.imag]))
     out, err, ns = pll_pallas(xp, jnp.asarray(st), alpha, beta, fmin, fmax,
@@ -270,6 +316,45 @@ def test_pll_overlap_matches_jax(name):
         assert np.max(np.abs(tout.numpy() - np.asarray(jout))) < 2e-2
         assert np.max(_wrapped(terr.numpy() - np.asarray(jerr))) < 2e-2
         assert abs(float(tst[2]) - float(jst[2])) < 1e-4
+
+
+def test_pll_overlap_wrapper_takes_the_twin_only_on_the_cpu():
+    """A CPU tensor runs the plain twin (no launch counted) and gives
+    exactly what the twin gives; other devices are refused."""
+    alpha, beta, fmin, fmax = _params()
+    rng = np.random.default_rng(23)
+    n = 1 << 12
+    x = (np.exp(1j * (2 * np.pi * 0.21 * np.arange(n) + 0.5))
+         + 0.3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+         ).astype(np.complex64)
+    st = (np.float32(0.3), np.float32(0.1), np.float32((fmin + fmax) / 2))
+    before = pll_overlap_discard.launches
+    a = pll_overlap_discard(torch.from_numpy(x), st, alpha, beta, fmin,
+                            fmax, 2, 1024, 256)
+    b = pll_overlap_discard_reference(torch.from_numpy(x), st, alpha, beta,
+                                      fmin, fmax, 2, 1024, 256)
+    assert pll_overlap_discard.launches == before
+    assert bool(a[0]) == bool(b[0])
+    assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+    assert all(torch.equal(u, v) for u, v in zip(a[1], b[1]))
+    with pytest.raises(ValueError, match="device"):
+        pll_overlap_discard(torch.zeros(n, dtype=torch.complex64,
+                                        device="meta"), st, alpha, beta,
+                            fmin, fmax, 2, 1024, 256)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "segments"])
+def test_pll_overlap_rejects_bad_inputs(bad):
+    alpha, beta, fmin, fmax = _params()
+    x = torch.zeros(4096, dtype=torch.complex64)
+    lseg = 1024
+    if bad == "dtype":
+        x = x.to(torch.complex128)
+    else:
+        lseg = 3000
+    with pytest.raises(ValueError):
+        pll_overlap_discard(x, (0.0, 0.0, float(fmin)), alpha, beta, fmin,
+                            fmax, 2, lseg, 256)
 
 
 def test_plan_overlap_matches_jax():

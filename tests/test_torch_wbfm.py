@@ -186,11 +186,12 @@ def test_short_chunk_carry():
 
 
 @pytest.mark.parametrize("k, d, ok", [(640, 8, True), (512, 5, True),
-                                      (256, 8, True), (640, 64, False)])
+                                      (256, 8, True), (640, 128, False)])
 def test_kernel_capacity(k, d, ok):
     """The flagship (K 640, D 8) and graph (K 512, D 5) shapes fit the
-    kernel's shared memory; a very large decimation does not, and the
-    wrappers refuse it before launching."""
+    kernel's shared memory; a very large decimation (K 640, D 128: its
+    sample stages alone take 131 KB) does not, and the wrappers refuse it
+    before launching."""
     assert wbfm.fits(k, d) is ok
     if not ok:
         carry, x, xc, taps = _args(t=64 * d // 8 * 8, k=k)
