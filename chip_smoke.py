@@ -27,8 +27,9 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    for the f32 and the u8 wire, and again with the K2 rule on; the tone
    must come out within 50 Hz, and the K2 audio must match the default;
 6. K3: the sequential PLL kernel held against its twin over 8 192
-   samples (noise, carrier, zeros + carrier; multipliers 1, 2, 2.5) and
-   at the stereo graph's chunk;
+   samples (noise, carrier, zeros + carrier; multipliers 1, 2, 2.5), at
+   the edges of its tile (N = 0, 1, tile - 1, tile, tile + 1,
+   3 tile + 5), over two chained calls and at the stereo graph's chunk;
 7. stereo: rx_wbfm's default stereo receiver through the port's CLI
    (cli.main, in this process) over an 8 s capture at 1 102 500 S/s (0.5 s
    of noise, then a stereo multiplex with L a 1 kHz and R a 400 Hz tone
@@ -38,8 +39,10 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    must separate L and R by the JAX package's app-level margin (each
    channel's tone > 3x the other's);
 8. K3 timed at the graph's chunk and at one 8 s stream at the IF rate
-   (1 764 000 samples), beside its twin, its byte bound and the floor of
-   its dependency chain (a probe kernel that runs only the chain);
+   (1 764 000 samples), per launch and as device time (CUDA-graph
+   replay), beside its twin, its byte bound and the floor of its
+   dependency chain (a probe kernel that runs only the chain), each time
+   also as a ratio to that floor;
 9. overlap: the overlap-and-discard scan's path, run after phase 7: the
    stereo graph with the PLL pilot at a chunk size that gives the PLL
    40 960 samples (5 segments of 8192), where the tier runs, with the L+R
@@ -48,7 +51,8 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    the graph run again with the twin in the kernel's place, whose L-R
    (the part the PLL demodulates) must match within 2 LSB.  Then the
    kernel held against its twin on a 2^16-sample chunk, timed there
-   beside the twin, K3 and its own launch alone;
+   beside the twin, K3 and its own launch alone, whose time a step stands
+   beside a probe of the step's dependent chain;
 10. the kernels line and the final status line.
 
 Launch counts are zeroed just before the flagship, the K2 graph run, the
@@ -552,6 +556,23 @@ def stereo_pll_params():
     return blk._alpha, blk._beta, blk._freq_min, blk._freq_max
 
 
+def pll_diff(label, got, exp):
+    """|a - b| of two K3 results (out, err modulo 2 pi, the phases modulo
+    2 pi, the frequency), after checking shapes and finiteness."""
+    if got[0].shape != exp[0].shape or got[1].shape != exp[1].shape:
+        raise AssertionError(f"pll_phase {label}: shapes "
+                             f"{[tuple(g.shape) for g in got]} vs "
+                             f"{[tuple(e.shape) for e in exp]}")
+    if not all(torch.isfinite(torch.view_as_real(g) if g.is_complex()
+                              else g).all() for g in got):
+        raise AssertionError(f"pll_phase {label}: non-finite output")
+    n = got[0].numel()
+    return [(got[0] - exp[0]).abs().max().item() if n else 0.0,
+            wrap_err(got[1], exp[1], 2 * np.pi) if n else 0.0,
+            wrap_err(got[2][:2], exp[2][:2], 2 * np.pi),
+            (got[2][2] - exp[2][2]).abs().item()]
+
+
 def compare_pll(label, x, state, params, mult):
     """K3 against its twin on one input: out and err (err modulo 2 pi)
     and the state.  They round every operation alike and call the same
@@ -560,13 +581,7 @@ def compare_pll(label, x, state, params, mult):
     got = pll.pll_phase(x, state, *params, mult)
     exp = pll.pll_phase_reference(x, state, *params, mult)
     torch.cuda.synchronize()
-    if not all(torch.isfinite(torch.view_as_real(g) if g.is_complex()
-                              else g).all() for g in got):
-        raise AssertionError(f"pll_phase {label}: non-finite output")
-    errs = [(got[0] - exp[0]).abs().max().item(),
-            wrap_err(got[1], exp[1], 2 * np.pi),
-            wrap_err(got[2][:2], exp[2][:2], 2 * np.pi),
-            (got[2][2] - exp[2][2]).abs().item()]
+    errs = pll_diff(label, got, exp)
     if max(errs) > 1e-5:
         raise AssertionError(f"pll_phase {label}: |kernel - twin| (out, "
                              f"err, phases, freq) = {errs} > 1e-5")
@@ -575,7 +590,9 @@ def compare_pll(label, x, state, params, mult):
 
 def phase_pll_hold(dev, gen):
     """K3 against its twin over PLL_SPAN samples: three inputs x three
-    multipliers, the stereo PLL's constants."""
+    multipliers, the stereo PLL's constants.  Then at the edges of the
+    kernel's tile (N = 0, 1, tile - 1, tile, tile + 1, 3 tile + 5), and
+    over two chained calls."""
     params = stereo_pll_params()
     state = torch.tensor([0.3, -0.5, float(params[2])], device=dev)
     worst = 0.0
@@ -585,6 +602,58 @@ def phase_pll_hold(dev, gen):
             worst = max(worst, err)
             log("K3", f"{name}, multiplier {mult}, {x.shape[0]} samples: "
                       f"max |kernel - twin| {err:.3g} (limit 1e-5)")
+    tile = pll.kernel_tile()
+    if tile != pll.TILE:
+        raise AssertionError(f"pll_phase: the built kernel's tile {tile} is "
+                             f"not ops/pll.py's TILE {pll.TILE}")
+    edges = (0, 1, tile - 1, tile, tile + 1, 3 * tile + 5)
+    edge = 0.0
+    for n in edges:
+        for name, x in pll_cases(gen, dev, n).items():
+            for mult in (1.0, 2.0, 2.5):
+                edge = max(edge, compare_pll(f"{name} x{mult} N={n}", x,
+                                             state, params, mult))
+    log("K3", f"tile edges N = {edges} (tile {tile}), three inputs x "
+              f"multipliers 1, 2, 2.5: max |kernel - twin| {edge:.3g} "
+              f"(limit 1e-5)")
+    return max(worst, edge, hold_pll_chained(dev, gen, params, state, tile))
+
+
+def hold_pll_chained(dev, gen, params, state, tile):
+    """K3 over two chained calls (3 tile + 5 samples split at tile + 7,
+    the state passed on) against its twin's two chained calls (limit
+    1e-5, 0 expected).  Against one call over the concatenation they
+    depart through the state, which crosses calls as float32 radians in
+    both: held at the twin's float64-oracle tolerances (err and phases
+    1e-3, out 5e-2, frequency 1e-5; tests/test_torch_pll_split.py)."""
+    worst = apart = 0.0
+    cut = tile + 7
+    for name, x in pll_cases(gen, dev, 3 * tile + 5).items():
+        for mult in (1.0, 2.0, 2.5):
+            runs = {}
+            for fn in (pll.pll_phase, pll.pll_phase_reference):
+                s, outs, errs = state, [], []
+                for xc in (x[:cut], x[cut:]):
+                    o, e, s = fn(xc.contiguous(), s, *params, mult)
+                    outs.append(o)
+                    errs.append(e)
+                runs[fn] = (torch.cat(outs), torch.cat(errs), s)
+            label = f"chained {name} x{mult}"
+            errs = pll_diff(label, runs[pll.pll_phase],
+                            runs[pll.pll_phase_reference])
+            if max(errs) > 1e-5:
+                raise AssertionError(f"pll_phase {label}: |kernel - twin| "
+                                     f"{errs} > 1e-5")
+            worst = max(worst, *errs)
+            d = pll_diff(label, runs[pll.pll_phase],
+                         pll.pll_phase(x, state, *params, mult))
+            if d[0] >= 5e-2 or max(d[1], d[2]) >= 1e-3 or d[3] >= 1e-5:
+                raise AssertionError(f"pll_phase {label}: two calls vs one "
+                                     f"{d}")
+            apart = max(apart, *d)
+    log("K3", f"two chained calls (split at {cut} of {3 * tile + 5}): max "
+              f"|kernel - twin| {worst:.3g} (limit 1e-5); against one call "
+              f"{apart:.3g} (the radian state's rounding)")
     return worst
 
 
@@ -872,8 +941,9 @@ def hold_overlap(label, x, state, params):
 
 def phase_pll_time(dev, gen, chunk):
     """K3 timed at the stereo graph's chunk and at one 8 s stream at the
-    IF rate, beside its twin (at the chunk), its byte bound and the floor
-    of its dependency chain."""
+    IF rate, per launch and as device time (CUDA-graph replay), beside its
+    twin (at the chunk), its byte bound and the floor of its dependency
+    chain, measured in this run."""
     params = stereo_pll_params()
     state = torch.tensor([0.0, 0.0, float(params[2])], device=dev)
     x = fm_like(gen, 1, chunk, dev)[0].contiguous()
@@ -887,8 +957,11 @@ def phase_pll_time(dev, gen, chunk):
     entry = None
     for n in (chunk, STEREO_S * RATE // 5):
         xs = x if n == chunk else fm_like(gen, 1, n, dev)[0].contiguous()
-        ms = median_ms(lambda: pll.pll_phase(xs, state, *params, 2.0),
-                       reps=REPS if n == chunk else 5)
+
+        def run():
+            pll.pll_phase(xs, state, *params, 2.0)
+        ms = median_ms(run, reps=REPS if n == chunk else 5)
+        dev_ms = graph_ms(run, *((20, 10) if n == chunk else (3, 3)))
         t_bytes = n * PLL_BYTES / HBM_BYTES_PER_S
         t_ops = n * PLL_OPS / FP32_FLOP_PER_S
         bound_ms = 1e3 * max(t_bytes, t_ops)
@@ -907,13 +980,24 @@ def phase_pll_time(dev, gen, chunk):
                      "bound_ms": bound_ms,
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",
-                     "library_ms": None, "chain_floor_ms": floor_ms}
+                     "library_ms": None, "chain_floor_ms": floor_ms,
+                     "floor_ratio": ms / floor_ms, "graph_ms": dev_ms,
+                     "graph_floor_ratio": dev_ms / floor_ms,
+                     "chain_ns_per_step": ns_step}
+        else:
+            entry[f"at_{n}"] = {"ms": ms, "graph_ms": dev_ms,
+                                "chain_floor_ms": floor_ms,
+                                "floor_ratio": ms / floor_ms,
+                                "graph_floor_ratio": dev_ms / floor_ms,
+                                "bound_ms": bound_ms}
         log("K3", f"[{n} samples] {ms:.4f} ms per launch (median of "
-                  f"{REPS if n == chunk else 5}), {n / ms / 1e3:.2f} M "
+                  f"{REPS if n == chunk else 5}), device {dev_ms:.4f} ms "
+                  f"(CUDA-graph replay), {n / ms / 1e3:.2f} M "
                   f"samples/s; bound {bound_ms:.6f} ms "
                   f"({n * PLL_BYTES / 1e6:.2f} MB at 3.35 TB/s); chain floor {floor_ms:.4f} ms "
-                  f"({ns_step:.3f} ns a step x {n}); {ms / floor_ms:.2f}x "
-                  f"the floor{plain}")
+                  f"({ns_step:.3f} ns a step x {n}); {ms / floor_ms:.3f}x "
+                  f"the floor a launch, {dev_ms / floor_ms:.3f}x device"
+                  f"{plain}")
     return entry
 
 
@@ -953,12 +1037,21 @@ def phase_overlap_hold(dev, gen, chunk):
     nbytes = n * 8 + 5 * s * 4 + 3 * n * 4 + 10 * s * 4
     ops = steps * s * OVERLAP_OPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    scan_ns = scan_ms * 1e6 / steps
+    pll_overlap.chain_probe(64, dev, *params)                # warm-up
+    probe_steps = 1 << 14
+    probe_ms, cycles = pll_overlap.chain_probe(probe_steps, dev, *params)
+    probe_ns = probe_ms * 1e6 / probe_steps
     log("overlap", f"2^16 chunk: kernel {ms:.3f} ms (median of 5, the torch "
                    f"set-up and chaining included), twin {plain_ms:.1f} ms "
                    f"(host clock, one run), K3 on the same chunk "
                    f"{k3_ms:.3f} ms (median of 5); the scan's launch alone "
                    f"{scan_ms:.3f} ms, {steps} serial steps a segment, "
-                   f"{scan_ms * 1e6 / steps:.1f} ns a step")
+                   f"{scan_ns:.1f} ns a step")
+    log("overlap", f"chain probe (the step's dependent chain through the "
+                   f"VCO, one thread): {probe_ns:.1f} ns and "
+                   f"{cycles / probe_steps:.0f} SM cycles a step; the scan's "
+                   f"{scan_ns:.1f} ns a step is {scan_ns / probe_ns:.2f}x it")
     return {"name": "pll_overlap_discard", "route": "cuda",
             "source": "luaradio_tpu_torch/csrc/pll_overlap.cu",
             "replaces": "luaradio_tpu/ops/pll_overlap.py:74 (lax.scan)",
@@ -967,7 +1060,9 @@ def phase_overlap_hold(dev, gen, chunk):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "bound_binds": False,
             "k3_same_chunk_ms": k3_ms, "scan_ms": scan_ms,
-            "serial_steps": steps, "ns_per_step": scan_ms * 1e6 / steps}
+            "serial_steps": steps, "ns_per_step": scan_ns,
+            "chain_floor_ns_per_step": probe_ns,
+            "floor_ratio": scan_ns / probe_ns}
 
 
 def plan_overlap_for(n, params):

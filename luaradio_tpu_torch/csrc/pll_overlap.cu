@@ -114,6 +114,40 @@ overlap_scan_kernel(const float2* __restrict__ x, int s_count, int lseg,
   exit_state[4 * s_count + s] = fr;
 }
 
+// Measurement probe, not a port of anything: one thread runs only the
+// dependent chain of the scan's step through the VCO v (x * conj(v) ->
+// atan2f -> f2, dl -> sinf/cosf(dl) -> the v product -> renorm -> v; fr
+// rides along), with no m update and no loads or stores, for `steps`
+// steps.  The input samples come from an LCG off the chain.  Its time a
+// step is the latency floor of one segment's walk; cycles[0] gets the
+// clock64() count.
+__global__ void overlap_chain_probe_kernel(int steps, Loop k, uint32_t seed,
+                                           long long* cycles, float* sink) {
+  float vr = 1.f, vi = 0.f, fr = 0.5f * (k.fmin + k.fmax);
+  uint32_t r = seed;
+  const long long t0 = clock64();
+  for (int i = 0; i < steps; ++i) {
+    r = r * 1664525u + 1013904223u;
+    const float xr = __int2float_rn(static_cast<int32_t>(r)) * 4.6566e-10f;
+    r = r * 1664525u + 1013904223u;
+    const float xi = __int2float_rn(static_cast<int32_t>(r)) * 4.6566e-10f;
+    const float pr = __fadd_rn(__fmul_rn(xr, vr), __fmul_rn(xi, vi));
+    const float pi = __fsub_rn(__fmul_rn(xi, vr), __fmul_rn(xr, vi));
+    const float err = atan2f(pi, pr);
+    const float f2 = __fadd_rn(fr, __fmul_rn(k.beta, err));
+    const float dl = __fadd_rn(f2, __fmul_rn(k.alpha, err));
+    const float sl = sinf(dl), cl = cosf(dl);
+    const float vr2 = __fsub_rn(__fmul_rn(vr, cl), __fmul_rn(vi, sl));
+    const float vi2 = __fadd_rn(__fmul_rn(vr, sl), __fmul_rn(vi, cl));
+    const float gv = renorm(vr2, vi2);
+    vr = __fmul_rn(vr2, gv);
+    vi = __fmul_rn(vi2, gv);
+    fr = clamp_nan(f2, k.fmin, k.fmax);
+  }
+  cycles[0] = clock64() - t0;
+  sink[0] = vr + vi + fr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -137,6 +171,18 @@ int lr_pll_overlap_scan(const void* x, int s_count, int lseg, int warm,
       static_cast<const float*>(init), k, static_cast<float*>(o_r),
       static_cast<float*>(o_i), static_cast<float*>(o_e),
       static_cast<float*>(snap), static_cast<float*>(exit_state));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chain probe (see overlap_chain_probe_kernel), with the loop
+// constants alpha, beta, fmin, fmax: cycles int64 [1], sink float32 [1].
+int lr_overlap_chain_probe(int steps, float alpha, float beta, float fmin,
+                           float fmax, void* cycles, void* sink,
+                           void* stream) {
+  Loop k{alpha, beta, 0.f, fmin, fmax};
+  overlap_chain_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      steps, k, 12345u, static_cast<long long*>(cycles),
+      static_cast<float*>(sink));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,6 +23,12 @@ kernel over four blocks of a slow loop, where the rounding can show, the
 two depart by 2.4e-7 in err and 0 in the frequency
 (tests/test_torch_pll.py).
 
+The kernel walks only (phi_l, fk) in one thread and records the phase
+error d; for an integer multiplier the output phase is rebuilt in
+parallel, tile by tile (:data:`TILE` samples), from wrapping 32-bit prefix
+sums of the recorded integers, which gives the sequential loop's bits
+(csrc/pll.cu; tests/test_torch_pll_split.py emulates the split).
+
 The twin's chain has no tensor form: it walks the samples in Python with
 float32 and explicitly wrapped 32-bit integer arithmetic (numpy scalars,
 int64 values wrapped to 32 bits, clamped before each convert), between the
@@ -50,6 +56,9 @@ _TH_LO, _TH_HI = -2147483648.0, 2147483392.0
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+#: samples a ring slot of the kernel holds, the tile of its output-phase
+#: scan (csrc/pll.cu kTile; lr_pll_tile reports the built kernel's)
+TILE = 512
 
 
 def _lib():
@@ -60,7 +69,14 @@ def _lib():
         lib.lr_pll_phase.restype = ctypes.c_int
         lib.lr_pll_chain_probe.argtypes = [_I, _F, _F, _VP, _VP, _VP]
         lib.lr_pll_chain_probe.restype = ctypes.c_int
+        lib.lr_pll_tile.argtypes = []
+        lib.lr_pll_tile.restype = ctypes.c_int
     return lib
+
+
+def kernel_tile() -> int:
+    """The tile of the built kernel (builds it if needed)."""
+    return int(_lib().lr_pll_tile())
 
 
 def constants(alpha, beta, fmin, fmax, mult) -> dict:
@@ -184,13 +200,20 @@ def pll_phase(x: torch.Tensor, state: torch.Tensor, alpha, beta, fmin, fmax,
     _check(x, state)
     if x.device.type == "cpu":
         return pll_phase_reference(x, state, alpha, beta, fmin, fmax, mult)
-    k = constants(alpha, beta, fmin, fmax, mult)
+    out, err, new_state = _launch(_lib(), x, state,
+                                  constants(alpha, beta, fmin, fmax, mult))
+    pll_phase.launches += 1
+    return out, err, new_state
+
+
+def _launch(lib, x, state, k: dict):
+    """Launch ``lr_pll_phase`` of ``lib`` on CUDA tensors (checked by the
+    caller) and return (out, err, new state)."""
     n = x.shape[0]
     out = torch.empty_like(x)
     err = torch.empty(n, dtype=torch.float32, device=x.device)
     new_state = torch.empty(3, dtype=torch.float32, device=x.device)
     state = state.contiguous()
-    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.lr_pll_phase(
@@ -201,7 +224,6 @@ def pll_phase(x: torch.Tensor, state: torch.Tensor, alpha, beta, fmin, fmax,
             k["mult_i"], int(k["int_mult"]), out.data_ptr(), err.data_ptr(),
             new_state.data_ptr(), stream)
     cudabuild.check(lib, code, "pll_phase")
-    pll_phase.launches += 1
     return out, err, new_state
 
 
@@ -233,4 +255,4 @@ def chain_probe(steps: int, device) -> tuple[float, int]:
     return a.elapsed_time(b), int(cycles.item())
 
 __all__ = ["pll_phase", "pll_phase_reference", "constants", "theta_turns",
-           "chain_probe"]
+           "chain_probe", "kernel_tile", "TILE"]

@@ -39,6 +39,8 @@ def _lib():
         lib.lr_pll_overlap_scan.argtypes = [_VP, _I, _I, _I, _VP] + \
             [_F] * 5 + [_VP] * 6
         lib.lr_pll_overlap_scan.restype = ctypes.c_int
+        lib.lr_overlap_chain_probe.argtypes = [_I] + [_F] * 4 + [_VP] * 3
+        lib.lr_overlap_chain_probe.restype = ctypes.c_int
     return lib
 
 
@@ -237,5 +239,32 @@ def pll_overlap_discard(x, state, alpha, beta, fmin, fmax, mult,
 
 pll_overlap_discard.launches = 0
 
+
+def chain_probe(steps: int, device, alpha, beta, fmin,
+                fmax) -> tuple[float, int]:
+    """Time the scan step's dependent chain through the VCO alone on the
+    card (one thread, ``steps`` steps, no m update; csrc/pll_overlap.cu
+    overlap_chain_probe_kernel): returns (milliseconds, clock64 cycles).
+    A measurement of a segment's latency floor, not a kernel of the
+    receiver."""
+    dev = torch.device(device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        code = lib.lr_overlap_chain_probe(
+            steps, *(float(np.float32(v)) for v in (alpha, beta, fmin,
+                                                     fmax)),
+            cycles.data_ptr(), sink.data_ptr(), stream.cuda_stream)
+        b.record()
+    cudabuild.check(lib, code, "overlap_chain_probe")
+    b.synchronize()
+    return a.elapsed_time(b), int(cycles.item())
+
+
 __all__ = ["plan_overlap", "pll_overlap_discard",
-           "pll_overlap_discard_reference"]
+           "pll_overlap_discard_reference", "chain_probe"]
