@@ -53,14 +53,35 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    kernel held against its twin on a 2^16-sample chunk, timed there
    beside the twin, K3 and its own launch alone, whose time a step stands
    beside a probe of the step's dependent chain;
-10. the kernels line and the final status line.
+10. am: rx_am --synchronous through the CLI over an 8 s AM capture (0.5 s
+    of noise, then a carrier at the tuned frequency modulated 50 % by a
+    1 kHz tone at ~30 dB SNR), where K3 must launch (multiplier 1, the
+    AM loop's constants) and is held against its twin on every chunk it
+    took; the WAV must have the expected length and the tone within 50 Hz
+    at an amplitude margin > 10 over every bin but its harmonics (the
+    slow AGC clips the audio after the noise); then rx_am's envelope
+    receiver with the same check; K3 timed at the AM path's chunk;
+11. analog: rx_nbfm (5 kHz deviation, 700 Hz tone), rx_ssb usb and lsb
+    (a tone 1.2 kHz above the carrier: usb passes it, lsb keeps less than
+    1/20 of its power), rx_raw with a tune offset (against the float64
+    host translation, 1e-5) and iq_converter u8 -> f32 (equal to the host
+    conversion), each through the CLI over 4 s;
+12. bench graphs: bench.py's two graph shapes on the port,
+    UniformRandomSource -> WBFMMonoDemodulator -> Downsampler(8) ->
+    BenchmarkSink at 2^22-sample chunks, and the same chain fed by a
+    4 Mi-sample repeating u8 IQFileSource, streamed and device-resident,
+    each for ~3 s; the resident run must make no host-to-device copy and
+    give the streamed run's audio exactly over its first 3 chunks;
+13. the kernels line and the final status line.
 
 Launch counts are zeroed just before the flagship, the K2 graph run, the
-stereo CLI run and the overlap path run and read just after: each kernel
-must have run on its path.  Any failure raises (non-zero exit); a hang
-ends the run with a traceback after 240 s.  ``--profile PATH`` also writes a torch.profiler
-table of one mono graph run to PATH and of the stereo run to
-PATH.stereo.txt.
+stereo CLI run, the overlap path run and the rx_am --synchronous run and
+read just after: each kernel must have run on its path.  Any failure
+raises (non-zero exit); a hang ends the run with a traceback after 480 s.
+``--profile PATH`` also writes a torch.profiler table of one mono graph
+run to PATH, of the stereo run to PATH.stereo.txt, of the rx_am
+--synchronous run to PATH.am.txt and of 50 chunks of each bench graph to
+PATH.bench_<row>.txt.
 """
 
 from __future__ import annotations
@@ -78,11 +99,14 @@ import wave
 import numpy as np
 import torch
 
-from luaradio_tpu_torch import (CompositeBlock, DownsamplerBlock,
-                                IQFileSource, TunerBlock, WAVFileSink,
+from luaradio_tpu_torch import (BenchmarkSink, ComplexFloat32,
+                                CompositeBlock, DownsamplerBlock, Input,
+                                IQFileSource, SinkBlock, TunerBlock,
+                                UniformRandomSource, WAVFileSink,
                                 WBFMMonoDemodulator, WBFMStereoDemodulator)
 from luaradio_tpu_torch import cli
 from luaradio_tpu_torch.blocks.signal import carrier
+from luaradio_tpu_torch.core.runtime import Runner
 from luaradio_tpu_torch.ops import cudabuild, pll, pll_overlap, wbfm
 from luaradio_tpu_torch.ops.complexutil import (complex_to_wire,
                                                 wire_to_complex)
@@ -90,11 +114,13 @@ from luaradio_tpu_torch.ops.fir import _conv_real
 from luaradio_tpu_torch.parallel.flagship import (INV_GAIN,
                                                   make_wbfm_mono_step,
                                                   wbfm_mono_taps)
+from luaradio_tpu_torch.utils import format as format_utils
 
 T0 = time.monotonic()
 #: a hang ends the run with a traceback after this many seconds; a whole
 #: run, build included, takes about a minute and a half on the card
-HANG_S = 240
+#: (two and a half with --profile)
+HANG_S = 480
 #: H100 SXM data sheet: HBM rate, and fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -118,6 +144,11 @@ STEREO_S, NOISE_S = 8, 0.5
 #: 40 960-sample chunks, which plan_overlap splits into segments
 OVERLAP_CHUNK = 204800
 TONE_L, TONE_R = 1000.0, 400.0
+AM_S, AM_TONE, NBFM_TONE, SSB_TONE = 8, 1000.0, 700.0, 1200.0
+ANALOG_S = 4
+#: bench.py's graph rows: a 2^22-sample chunk at 256 kS/s, a 4 Mi-sample
+#: u8 capture for the file rows, and the seconds each row runs
+BENCH_CHUNK, BENCH_FILE, BENCH_S = 1 << 22, 4 << 20, 3.0
 
 
 def log(phase: str, msg: str):
@@ -714,25 +745,26 @@ def read_wav(path):
     return pcm.reshape(-1, nch), rate
 
 
-def record_pll_chunks(scanned=None):
+def record_pll_chunks(scanned=None, kernel=None):
     """Wrap PLLBlock.process to record (chunk length, tier) of every chunk
     a PLL runs; returns the list and a function that unwraps it.  Given a
     list ``scanned``, also appends (x, state, params) of every chunk on
-    which the overlap scan kernel launched, copied as the chunk entered
-    the block: the inputs the path gave the kernel."""
+    which ``kernel`` (default: the overlap scan kernel) launched, copied
+    as the chunk entered the block: the inputs the path gave the
+    kernel."""
     seen, process = [], carrier.PLLBlock.process
+    kernel = kernel or pll_overlap.pll_overlap_discard
 
     def recording(self, state, x):
         before = dict(self.tier_counts)
         if scanned is not None:
-            n0 = pll_overlap.pll_overlap_discard.launches
+            n0 = kernel.launches
             copy = (x.clone(), tuple(torch.as_tensor(v).clone()
                                      for v in state))
         out = process(self, state, x)
         seen.append((x.shape[-1], [k for k in self.tier_counts
                                    if self.tier_counts[k] != before[k]]))
-        if scanned is not None \
-                and pll_overlap.pll_overlap_discard.launches > n0:
+        if scanned is not None and kernel.launches > n0:
             scanned.append(copy + ((self._alpha, self._beta,
                                     self._freq_min, self._freq_max,
                                     int(self.multiplier)),))
@@ -1069,6 +1101,361 @@ def plan_overlap_for(n, params):
     return pll_overlap.plan_overlap(n, float(params[0]))
 
 
+def noisy(z, n0, seed):
+    """z with its first n0 samples zeroed and complex Gaussian noise at
+    ~30 dB under a unit carrier added throughout (a receiver tuned before
+    the station comes up), as complex64."""
+    rng = np.random.default_rng(seed)
+    z = z.astype(np.complex64)
+    z[:n0] = 0
+    n = len(z)
+    z += (rng.standard_normal(n, np.float32)
+          + 1j * rng.standard_normal(n, np.float32)) * np.float32(
+              np.sqrt(0.5e-3))
+    return z
+
+
+def write_iq(tmp, name, z):
+    path = os.path.join(tmp, name)
+    z.view(np.float32).tofile(path)
+    return path
+
+
+def tone_margin(a, rate, tone, harmonics=False):
+    """The JAX demodulator tests' measure (test_demodulators.py:15-27), on
+    the second half of ``a``: (frequency of the largest bin within 50 Hz
+    of ``tone``, that bin's amplitude over the strongest bin elsewhere,
+    DC and +-20 bins around the tone left out).  ``harmonics`` also leaves
+    out +-20 bins around each multiple of the tone: rx_am's slow AGC
+    (3 s) winds its gain up on the noise before the station and clips the
+    audio for seconds after, which puts the tone's odd harmonics above
+    the noise."""
+    a = a[len(a) // 2:].astype(np.float64)
+    spec = np.abs(np.fft.rfft(a * np.hanning(len(a))))
+    f = np.arange(len(spec)) * rate / len(a)
+    win = np.nonzero(np.abs(f - tone) <= 50)[0]
+    k = win[np.argmax(spec[win])]
+    peak = spec[k]
+    spec = spec.copy()
+    for h in range(1, int(f[-1] // f[k]) + 1 if harmonics else 2):
+        spec[max(0, h * k - 20):h * k + 21] = 0
+    spec[:5] = 0
+    return f[k], peak / (spec.max() + 1e-12)
+
+
+def run_cli(argv, dev):
+    t0 = time.monotonic()
+    rc = cli.main(argv, device=dev)
+    torch.cuda.synchronize()
+    return rc, time.monotonic() - t0
+
+
+def hold_audio(label, wav, want, rate_want, tone, harmonics=False):
+    """The WAV's length and rate, and ``tone`` within 50 Hz of its peak at
+    an amplitude margin over every other bin (tone_margin) above 10.
+    Returns the peak, the margin and the share of samples at full
+    scale."""
+    pcm, rate = read_wav(wav)
+    if pcm.shape != (want, 1) or rate != rate_want:
+        raise AssertionError(f"{label}: WAV {pcm.shape} at {rate} Hz (want "
+                             f"({want}, 1) at {rate_want} Hz)")
+    f, m = tone_margin(pcm[:, 0], rate, tone, harmonics)
+    if abs(f - tone) > 50 or m <= 10:
+        raise AssertionError(f"{label}: {tone:.0f} Hz tone found at "
+                             f"{f:.1f} Hz, margin {m:.3g} (limits 50 Hz, "
+                             f"10)")
+    clipped = float(np.mean(np.abs(pcm[len(pcm) // 2:, 0].astype(np.int32))
+                            >= 32767))
+    return f, m, clipped
+
+
+def am_pll_params():
+    """alpha, beta, fmin, fmax of rx_am --synchronous's PLL at its IF rate
+    (PLLBlock(1000, ifreq - 100, ifreq + 100), ifreq 0 for an iqfile
+    input: the station sits at the tuned frequency)."""
+    blk = carrier.PLLBlock(1000.0, -100.0, 100.0)
+    blk.input_rate = RATE / 5
+    blk.initialize()
+    return blk._alpha, blk._beta, blk._freq_min, blk._freq_max
+
+
+def phase_am(tmp, dev, profile):
+    """rx_am --synchronous through the CLI over an AM capture (0.5 s of
+    noise, then a carrier at the tuned frequency modulated 50 % by a
+    1 kHz tone at ~30 dB SNR): K3 must launch (its count zeroed just
+    before the run), and it is held against its twin on every chunk it
+    took, recorded as each entered the PLL.  Then rx_am's envelope
+    receiver on the same capture.  Returns the K3 record of the path."""
+    n, n0 = AM_S * RATE, int(NOISE_S * RATE)
+    t = np.arange(n) / RATE
+    z = (1 + 0.5 * np.sin(2 * np.pi * AM_TONE * t)) * np.exp(1j * 0.7)
+    del t
+    path = write_iq(tmp, "am.f32.iq", noisy(z, n0, 12))
+    del z
+    log("am", f"capture: {n} samples ({AM_S} s) at {RATE} S/s, f32le; "
+              f"noise for the first {NOISE_S} s, then AM 50 % by "
+              f"{AM_TONE:.0f} Hz at ~30 dB SNR")
+    argv = ["-a", "rx_am", "-i", f"iqfile:{path},rate={RATE}", "-o"]
+    run_cli(argv + [f"wavfile:{os.path.join(tmp, 'w.wav')}", "0",
+                    "--synchronous"], dev)                      # warm-up
+    wav = os.path.join(tmp, "am_sync.wav")
+    taken = []
+    seen, restore = record_pll_chunks(taken, pll.pll_phase)
+    try:
+        pll.pll_phase.launches = 0
+        rc, dt = run_cli(argv + [f"wavfile:{wav}", "0", "--synchronous"],
+                         dev)
+        launches = pll.pll_phase.launches
+    finally:
+        restore()
+    tiers = [t_[0] for _, t_ in seen]
+    if rc != 0 or launches < 1 or launches != tiers.count(3) \
+            or len(taken) != launches:
+        raise AssertionError(f"rx_am --synchronous: rc {rc}, K3 launches "
+                             f"{launches} over tiers {tiers} ({len(taken)} "
+                             f"recorded)")
+    f, m, clip = hold_audio("rx_am --synchronous", wav, n // 25, 44100,
+                            AM_TONE, harmonics=True)
+    chunk = seen[0][0]
+    log("am", f"CLI rx_am --synchronous: {n / dt / 1e6:.2f} M complex "
+              f"samples/s end to end ({dt:.3f} s); K3 launches {launches} "
+              f"over {len(seen)} PLL chunks of {chunk} samples (tiers: "
+              f"linear {tiers.count(1)}, overlap {tiers.count(2)}, "
+              f"sequential {tiers.count(3)}); tone at {f:.1f} Hz, margin "
+              f"{m:.3g} over all but its harmonics (limits 50 Hz, 10); "
+              f"{100 * clip:.0f} % of the second half at full scale (the "
+              f"slow AGC's gain, wound up on the noise)")
+    err = 0.0
+    for i, (x, state, p) in enumerate(taken):
+        e = compare_pll(f"am chunk {i}", x, torch.stack(state).to(dev),
+                        p[:4], float(p[4]))
+        err = max(err, e)
+    log("K3", f"on the {len(taken)} chunks rx_am --synchronous gave it "
+              f"(multiplier 1): max |kernel - twin| {err:.3g} (limit 1e-5)")
+    if profile:
+        pwav = os.path.join(tmp, "p.wav")
+        profile_run(lambda: run_cli(argv + [f"wavfile:{pwav}", "0",
+                                            "--synchronous"], dev),
+                    f"{profile}.am.txt", "rx_am --synchronous")
+    rc, edt = run_cli(argv + [f"wavfile:{os.path.join(tmp, 'am.wav')}",
+                              "0"], dev)
+    if rc != 0:
+        raise AssertionError(f"rx_am: rc {rc}")
+    f, m, clip = hold_audio("rx_am", os.path.join(tmp, "am.wav"), n // 25,
+                            44100, AM_TONE, harmonics=True)
+    log("am", f"CLI rx_am (envelope): {n / edt / 1e6:.2f} M complex "
+              f"samples/s end to end ({edt:.3f} s); tone at {f:.1f} Hz, "
+              f"margin {m:.3g} over all but its harmonics (limits 50 Hz, "
+              f"10); {100 * clip:.0f} % of the second half at full scale")
+    return {"launches": launches, "chunk": chunk, "max_abs_err": err,
+            "x": taken[0][0], "state": torch.stack(taken[0][1]).to(dev),
+            "sync_sps": n / dt, "envelope_sps": n / edt}
+
+
+def time_k3_am(am, dev):
+    """K3 at the AM path's PLL chunk (multiplier 1, the AM loop's
+    constants), on the first chunk the path gave it: a launch, device
+    time (CUDA-graph replay), the twin (host clock, one run) and the
+    bound."""
+    params = am_pll_params()
+    x, state = am["x"].contiguous(), am["state"]
+    n = x.shape[0]
+
+    def run():
+        pll.pll_phase(x, state, *params, 1.0)
+    ms = median_ms(run)
+    dev_ms = graph_ms(run)
+    t0 = time.monotonic()
+    pll.pll_phase_reference(x, state, *params, 1.0)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    t_bytes = n * PLL_BYTES / HBM_BYTES_PER_S
+    t_ops = n * PLL_OPS / FP32_FLOP_PER_S
+    rec = {"launches": am["launches"], "chunk": n, "ms": ms,
+           "graph_ms": dev_ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": am["max_abs_err"]}
+    log("K3", f"AM path chunk [{n} samples, multiplier 1]: {ms:.4f} ms a "
+              f"launch (median of {REPS}), device {dev_ms:.4f} ms "
+              f"(CUDA-graph replay); twin {plain_ms:.1f} ms (host clock, "
+              f"one run); bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    return rec
+
+
+def phase_analog(tmp, dev):
+    """rx_nbfm, rx_ssb (usb, lsb), rx_raw with a tune offset and
+    iq_converter through the CLI on the card, each over a capture of
+    ANALOG_S s with 0.5 s of noise first, each held by its own check."""
+    n, n0 = ANALOG_S * RATE, int(NOISE_S * RATE)
+    t = np.arange(n) / RATE
+    nbfm = noisy(np.exp(2j * np.pi * 5e3 * np.cumsum(
+        np.sin(2 * np.pi * NBFM_TONE * t)) / RATE), n0, 13)
+    usb = noisy(0.5 * np.exp(2j * np.pi * SSB_TONE * t), n0, 14)
+    del t
+    paths = {"nbfm": write_iq(tmp, "nbfm.f32.iq", nbfm),
+             "usb": write_iq(tmp, "usb.f32.iq", usb)}
+    del usb
+    sps = {}
+
+    def audio(app, cap, out, *args):
+        rc, dt = run_cli(["-a", app, "-i", f"iqfile:{cap},rate={RATE}",
+                          "-o", f"wavfile:{out}", "0", *args], dev)
+        if rc != 0:
+            raise AssertionError(f"{app}: rc {rc}")
+        return n / dt
+
+    audio("rx_nbfm", paths["nbfm"], os.path.join(tmp, "w.wav"))  # warm-up
+    wav = os.path.join(tmp, "nbfm.wav")
+    sps["rx_nbfm"] = audio("rx_nbfm", paths["nbfm"], wav)
+    f, m, _ = hold_audio("rx_nbfm", wav, n // 25, 44100, NBFM_TONE)
+    log("analog", f"CLI rx_nbfm (5 kHz deviation, {NBFM_TONE:.0f} Hz): "
+                  f"tone at {f:.1f} Hz, margin {m:.3g} (limits 50 Hz, 10); "
+                  f"{sps['rx_nbfm'] / 1e6:.2f} M complex samples/s")
+    power = {}
+    for sb in ("usb", "lsb"):
+        wav = os.path.join(tmp, f"{sb}.wav")
+        sps[f"rx_ssb {sb}"] = audio("rx_ssb", paths["usb"], wav, sb)
+        pcm, _ = read_wav(wav)
+        power[sb] = float(np.mean(pcm[len(pcm) // 2:, 0].astype(
+            np.float64) ** 2))
+    f, m, _ = hold_audio("rx_ssb usb", os.path.join(tmp, "usb.wav"),
+                         n // 25, 44100, SSB_TONE)
+    if power["lsb"] * 20 >= power["usb"]:
+        raise AssertionError(f"rx_ssb: lsb keeps {power['lsb']:.3g} of the "
+                             f"usb tone's power {power['usb']:.3g}")
+    log("analog", f"CLI rx_ssb on a tone {SSB_TONE:.0f} Hz above the "
+                  f"carrier: usb passes it at {f:.1f} Hz, margin {m:.3g}; "
+                  f"lsb keeps 1/{power['usb'] / power['lsb']:.0f} of its "
+                  f"power (limit 1/20); {sps['rx_ssb usb'] / 1e6:.2f} / "
+                  f"{sps['rx_ssb lsb'] / 1e6:.2f} M complex samples/s")
+
+    out = os.path.join(tmp, "raw.iq")
+    rc, dt = run_cli(["-a", "rx_raw", "-i", f"iqfile:{paths['nbfm']}",
+                      "-o", f"iqfile:{out}", "100e6", str(RATE),
+                      "--tune-offset", "-25e3"], dev)
+    got = np.fromfile(out, np.complex64)
+    host = nbfm * np.exp(-2j * np.pi * 25e3 * np.arange(n) / RATE)
+    err = float(np.max(np.abs(got - host))) if got.shape == host.shape \
+        else np.inf
+    if rc != 0 or err > 1e-5:
+        raise AssertionError(f"rx_raw: rc {rc}, {got.shape} samples, max "
+                             f"|out - host translation| {err}")
+    sps["rx_raw"] = n / dt
+    log("analog", f"CLI rx_raw --tune-offset -25e3: max |out - host "
+                  f"translation (float64)| {err:.3g} (limit 1e-5); "
+                  f"{n / dt / 1e6:.2f} M complex samples/s")
+    del nbfm, host, got
+
+    u8 = os.path.join(tmp, "nbfm.u8.iq")
+    wire = np.fromfile(paths["nbfm"], np.float32)
+    np.clip(np.round(wire * 127.5 + 127.5), 0, 255).astype(np.uint8).tofile(
+        u8)
+    del wire
+    out = os.path.join(tmp, "conv.f32.iq")
+    rc, dt = run_cli(["-a", "iq_converter", "-i", f"iqfile:{u8},u8,"
+                      f"rate={RATE}", "-o", f"iqfile:{out},f32le"], dev)
+    with open(u8, "rb") as fh:
+        host = format_utils.bytes_to_complex(fh.read(),
+                                             format_utils.get_format("u8"))
+    got = np.fromfile(out, np.complex64)
+    if rc != 0 or not np.array_equal(got, host):
+        raise AssertionError(f"iq_converter: rc {rc}, output {got.shape} "
+                             f"not the host conversion {host.shape}")
+    sps["iq_converter"] = n / dt
+    log("analog", f"CLI iq_converter u8 -> f32le: equal to the host "
+                  f"conversion; {n / dt / 1e6:.2f} M complex samples/s")
+    return sps
+
+
+class _Collect(SinkBlock):
+    """A sink that keeps what it is given, on the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.got = []
+        self.add_type_signature([Input("in", lambda t: True)], [])
+
+    def process(self, x):
+        self.got.append(np.array(x))
+
+
+def bench_graph(source, sink):
+    top = CompositeBlock()
+    top.connect(source, WBFMMonoDemodulator(tau=75e-6), DownsamplerBlock(8),
+                sink)
+    return top
+
+
+def bench_run(make_source, dev, secs=BENCH_S):
+    """One of bench.py's graph rows on the card: warm up, time 16 chunks,
+    then run for about ``secs``.  Returns (complex samples/s, chunks,
+    the runner's host-to-device copies)."""
+    Runner(bench_graph(make_source(), BenchmarkSink()),
+           chunk_size=BENCH_CHUNK, device=dev).run(max_chunks=2)  # warm-up
+    t0 = time.monotonic()
+    Runner(bench_graph(make_source(), BenchmarkSink()),
+           chunk_size=BENCH_CHUNK, device=dev).run(max_chunks=16)
+    k = max(16, int(secs / max((time.monotonic() - t0) / 16, 1e-4)))
+    runner = Runner(bench_graph(make_source(), BenchmarkSink()),
+                    chunk_size=BENCH_CHUNK, device=dev)
+    t0 = time.monotonic()
+    runner.run(max_chunks=k)
+    dt = time.monotonic() - t0
+    return k * BENCH_CHUNK / dt, k, runner.h2d_copies
+
+
+def phase_bench_graphs(tmp, dev, smi, profile):
+    """The shapes of bench.py's two graph rows on the port:
+    UniformRandomSource(ComplexFloat32, 256e3) -> WBFMMonoDemodulator ->
+    DownsamplerBlock(8) at 2^22-sample chunks, and the same chain fed by a
+    4 Mi-sample repeating u8 IQFileSource, streamed and device-resident.
+    The resident run must make no host-to-device copy, and over the first
+    chunks its audio must equal the streamed run's exactly."""
+    rng = np.random.default_rng(7)
+    path = os.path.join(tmp, "bench.u8.iq")
+    rng.integers(0, 256, 2 * BENCH_FILE).astype(np.uint8).tofile(path)
+
+    def rand():
+        return UniformRandomSource(ComplexFloat32, 256e3, seed=1)
+
+    def ring(resident):
+        return lambda: IQFileSource(path, "u8", 256e3, repeat_on_eof=True,
+                                    resident=resident)
+    rows = {}
+    for name, make in (("random", rand), ("file streamed", ring(False)),
+                       ("file resident", ring(True))):
+        sps, k, copies = bench_run(make, dev)
+        want = 0 if name != "file streamed" else k
+        if copies != want:
+            raise AssertionError(f"bench {name}: {copies} host-to-device "
+                                 f"copies over {k} chunks (want {want})")
+        rows[name] = sps
+        log("bench", f"{name}: {sps / 1e6:.1f} M complex samples/s over {k} "
+                     f"chunks of {BENCH_CHUNK}; {copies} host-to-device "
+                     f"copies; {smi}")
+        if profile:
+            profile_run(lambda: Runner(
+                bench_graph(make(), BenchmarkSink()), chunk_size=BENCH_CHUNK,
+                device=dev).run(max_chunks=50),
+                f"{profile}.bench_{name.replace(' ', '_')}.txt",
+                f"bench {name}, 50 chunks")
+    audio = {}
+    for resident in (False, True):
+        sink = _Collect()
+        Runner(bench_graph(ring(resident)(), sink), chunk_size=BENCH_CHUNK,
+               device=dev).run(max_chunks=3)
+        audio[resident] = np.concatenate(sink.got)
+    if audio[True].shape != (3 * BENCH_CHUNK // 8,) \
+            or not np.array_equal(audio[True], audio[False]):
+        raise AssertionError(f"bench: resident audio {audio[True].shape} is "
+                             f"not the streamed run's "
+                             f"{audio[False].shape} exactly")
+    log("bench", f"resident and streamed audio equal over 3 chunks "
+                 f"({audio[True].shape[0]} samples)")
+    return rows
+
+
 def profile_run(run, out, what):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1142,6 +1529,15 @@ def main(argv):
     overlap = phase_overlap_hold(dev, gen, chunk)
     overlap["launches"] = overlap_launches
     overlap["max_abs_err"] = max(overlap["max_abs_err"], path_err)
+    with tempfile.TemporaryDirectory() as tmp:
+        am = phase_am(tmp, dev, profile)
+    k3["am_path"] = time_k3_am(am, dev)
+    k3["max_abs_err"] = max(k3["max_abs_err"], am["max_abs_err"])
+    del am
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_analog(tmp, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_bench_graphs(tmp, dev, smi, profile)
     entries = [k1, k2, k3, overlap]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -6,12 +6,15 @@ with device blocks running as torch tensor code on a CUDA card and the TPU
 package's Pallas kernels rewritten as CUDA kernels (csrc/).  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 
-The port holds the rx_wbfm receiver end to end, mono and stereo: IQ file
-source, tuner, WBFM mono and stereo demodulators (the PLL and its three
-tiers, the vector pilot), downsampler, WAV/IQ/benchmark sinks, the graph
-optimizer, the runtime, the hand-fused flagship step, and the
-application dispatcher and CLI for rx_wbfm (``python -m
-luaradio_tpu_torch.cli``).
+The port holds the analog receivers end to end: rx_wbfm (mono and
+stereo), rx_am (envelope and synchronous), rx_nbfm, rx_ssb, rx_raw and
+iq_converter through the application dispatcher and CLI (``python -m
+luaradio_tpu_torch.cli``), with their blocks and composites (tuner,
+resamplers, the WBFM, NBFM, AM and SSB demodulators, the PLL and its
+three tiers, the AGC, the designed filters), the IQ file source with its
+device-resident ring, the zero, signal and uniform random sources, the
+WAV/IQ/benchmark sinks, the graph optimizer, the runtime and the
+hand-fused flagship step.
 """
 
 __version__ = "0.1.0"

@@ -3,8 +3,9 @@ reference: radio/applications/*.lua).  Each application is a spec (name,
 description, supported inputs and outputs, arguments, options) plus a
 run(input, output, args, device) that builds and runs the flow graph.
 IF/AF decimation factors follow from the source rate as in the reference
-(rx_wbfm.lua:38-44).  The other nine applications are later slices of the
-port: ``APPLICATIONS`` holds the ported ones only."""
+(rx_wbfm.lua:38-44).  The digital receivers (rx_rds, rx_ax25, rx_pocsag,
+rx_ert) are a later slice of the port: ``APPLICATIONS`` holds the ported
+ones only."""
 
 from __future__ import annotations
 
@@ -38,6 +39,32 @@ _AUDIO_OUTPUTS = ("pulseaudio", "portaudio", "wavfile")
 
 def _round(x):
     return int(x + 0.5)
+
+
+class RxRaw(Application):
+    def __init__(self):
+        super().__init__(
+            "rx_raw", "Raw IQ Receiver",
+            arguments=[("frequency", "Station frequency in Hz"),
+                       ("sample_rate", "Sample rate in Hz")],
+            options=[("tune-offset", None, "Tune offset in Hz")],
+            supported_inputs={k: {} for k in _SDR_RATES},
+            supported_outputs=["iqfile", "networkclient", "networkserver"])
+
+    def run(self, input, output, args, device=None):
+        frequency = float(args[0])
+        rate = float(args[1])
+        tune_offset = args.get("tune-offset")
+        source = input.make(frequency + (float(tune_offset or 0)), rate)
+        sink = output.make()
+        top = radio.CompositeBlock()
+        if tune_offset is None:
+            top.connect(source, sink)
+        else:
+            top.connect(source,
+                        radio.FrequencyTranslatorBlock(float(tune_offset)),
+                        sink)
+        top.run(device=device)
 
 
 class RxWBFM(Application):
@@ -76,6 +103,106 @@ class RxWBFM(Application):
         top.run(device=device)
 
 
-APPLICATIONS = {app.name: app for app in [RxWBFM()]}
+class RxNBFM(Application):
+    def __init__(self):
+        super().__init__(
+            "rx_nbfm", "Narrowband FM Receiver",
+            arguments=[("frequency", "Station frequency in Hz")],
+            options=[("deviation", 5e3, "Deviation in Hz"),
+                     ("bandwidth", 4e3, "Bandwidth in Hz")],
+            supported_inputs=_SDR_RATES,
+            supported_outputs=_AUDIO_OUTPUTS)
 
-__all__ = ["Application", "APPLICATIONS", "RxWBFM"]
+    def run(self, input, output, args, device=None):
+        tune_offset = input.options.get("_tune_offset", -100e3)
+        frequency = float(args[0])
+        deviation = float(args.get("deviation") or 5e3)
+        bandwidth = float(args.get("bandwidth") or 4e3)
+        source = input.make(frequency + tune_offset, input.rate)
+        if_downsample = _round(source.get_rate() / 44.1e3)
+        tuner = radio.TunerBlock(tune_offset, 2 * (deviation + bandwidth),
+                                 if_downsample)
+        demod = radio.NBFMDemodulator(deviation, bandwidth)
+        top = radio.CompositeBlock()
+        top.connect(source, tuner, demod, output.make(1))
+        top.run(device=device)
+
+
+class RxAM(Application):
+    def __init__(self):
+        super().__init__(
+            "rx_am", "AM Receiver",
+            arguments=[("frequency", "Station frequency in Hz")],
+            options=[("synchronous", False, "Synchronous demodulator"),
+                     ("bandwidth", 5e3, "Bandwidth in Hz")],
+            supported_inputs=_SDR_RATES,
+            supported_outputs=_AUDIO_OUTPUTS)
+
+    def run(self, input, output, args, device=None):
+        tune_offset = input.options.get("_tune_offset", -50e3)
+        frequency = float(args[0])
+        bandwidth = float(args.get("bandwidth") or 5e3)
+        source = input.make(frequency + tune_offset, input.rate)
+        rate = source.get_rate()
+        sink = output.make(1)
+        top = radio.CompositeBlock()
+        if not args.get("synchronous"):
+            if_downsample = _round(rate / 44.1e3)
+            tuner = radio.TunerBlock(tune_offset, 2 * bandwidth, if_downsample)
+            demod = radio.AMEnvelopeDemodulator(bandwidth)
+            top.connect(source, tuner, demod, radio.AGCBlock("slow"), sink)
+        else:
+            if_downsample = _round(rate / 220.5e3)
+            af_downsample = _round(rate / if_downsample / 44.1e3)
+            demod = radio.AMSynchronousDemodulator(-tune_offset, bandwidth)
+            top.connect(source, radio.DecimatorBlock(if_downsample), demod,
+                        radio.DownsamplerBlock(af_downsample),
+                        radio.AGCBlock("slow"), sink)
+        top.run(device=device)
+
+
+class RxSSB(Application):
+    def __init__(self):
+        super().__init__(
+            "rx_ssb", "SSB Receiver",
+            arguments=[("frequency", "Station frequency in Hz"),
+                       ("sideband", "'lsb' or 'usb'")],
+            options=[("bandwidth", 3e3, "Bandwidth in Hz")],
+            supported_inputs=_SDR_RATES,
+            supported_outputs=_AUDIO_OUTPUTS)
+
+    def run(self, input, output, args, device=None):
+        tune_offset = input.options.get("_tune_offset", -100e3)
+        frequency = float(args[0])
+        sideband = args[1]
+        if sideband not in ("lsb", "usb"):
+            raise ValueError("sideband should be 'lsb' or 'usb'")
+        bandwidth = float(args.get("bandwidth") or 3e3)
+        source = input.make(frequency + tune_offset, input.rate)
+        if_downsample = _round(source.get_rate() / 44.1e3)
+        tuner = radio.TunerBlock(tune_offset, 2 * bandwidth, if_downsample)
+        demod = radio.SSBDemodulator(sideband, bandwidth)
+        top = radio.CompositeBlock()
+        top.connect(source, tuner, demod, output.make(1))
+        top.run(device=device)
+
+
+class IQConverter(Application):
+    def __init__(self):
+        super().__init__(
+            "iq_converter", "IQ File Format Converter",
+            supported_inputs={"iqfile": {}}, supported_outputs=["iqfile"])
+
+    def run(self, input, output, args, device=None):
+        source = input.make(0.0, input.rate or 1.0)
+        top = radio.CompositeBlock()
+        top.connect(source, output.make())
+        top.run(device=device)
+
+
+APPLICATIONS = {app.name: app for app in [
+    RxRaw(), RxWBFM(), RxNBFM(), RxAM(), RxSSB(), IQConverter(),
+]}
+
+__all__ = ["Application", "APPLICATIONS", "RxRaw", "RxWBFM", "RxNBFM",
+           "RxAM", "RxSSB", "IQConverter"]

@@ -1,6 +1,6 @@
-"""Carrier recovery blocks of the stereo receiver: the PLL and the
-vectorized pilot recovery (the JAX package's blocks/signal/carrier.py;
-reference: radio/blocks/signal/pll.lua).  AGC, squelch, clock recovery
+"""Carrier recovery and level control: the PLL, the vectorized pilot
+recovery and the AGC (the JAX package's blocks/signal/carrier.py;
+reference: radio/blocks/signal/{pll,agc}.lua).  Squelch, clock recovery
 and the phase corrector are later slices of the port."""
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ import torch
 
 from luaradio_tpu_torch.core.block import Input, Output, SignalBlock
 from luaradio_tpu_torch.ops import fir as fir_ops
+from luaradio_tpu_torch.ops.scan import linrec_first_order
 from luaradio_tpu_torch.types import ComplexFloat32, Float32
 from luaradio_tpu_torch.utils import filter_design
 
@@ -133,4 +134,54 @@ def pilot_normalize_multiply(p: torch.Tensor,
     return y.to(torch.complex64)
 
 
-__all__ = ["PLLBlock", "PilotRecoveryBlock", "pilot_normalize_multiply"]
+class AGCBlock(SignalBlock):
+    """Feed-forward AGC: a 1-pole power estimate, a 1-pole gain filter
+    toward target/power that holds while the power is below the
+    threshold, and the square root of the gain applied
+    (reference: agc.lua:72-115).  The gain's hold makes its recurrence's
+    coefficient data-valued: ops/scan.py's per-sample affine scan."""
+
+    def __init__(self, mode: str, target: float = -35.0,
+                 threshold: float = -75.0, gain_tau: float | None = None,
+                 power_tau: float = 1.0):
+        super().__init__()
+        if mode not in ("fast", "slow", "custom"):
+            raise ValueError(f"invalid mode {mode!r}")
+        self.mode = mode
+        self.target_db = target
+        self.threshold_db = threshold
+        self.gain_tau = {"fast": 0.1, "slow": 3.0}.get(mode, gain_tau)
+        if self.gain_tau is None:
+            raise ValueError("custom mode requires gain_tau")
+        self.power_tau = power_tau
+        for t in (Float32, ComplexFloat32):
+            self.add_type_signature([Input("in", t)], [Output("out", t)])
+
+    def initialize(self):
+        rate = self.get_rate()
+        self._power_alpha = np.float32(1.0 / (1.0 + self.power_tau * rate))
+        self._gain_alpha = np.float32(1.0 / (1.0 + self.gain_tau * rate))
+        self._target = np.float32(10 ** (self.target_db / 10))
+        self._threshold = np.float32(10 ** (self.threshold_db / 10))
+
+    def init_state(self):
+        return tuple(torch.zeros((), dtype=torch.float32, device=self.device)
+                     for _ in range(2))                   # (avg power, gain)
+
+    def process(self, state, x):
+        p0, g0 = state
+        ap, ag = self._power_alpha, self._gain_alpha
+        power_in = x.abs().to(torch.float32) ** 2
+        p = linrec_first_order(power_in * float(ap),
+                               float(np.float32(1.0) - ap), p0)
+        active = p >= float(self._threshold)
+        a = torch.where(active, float(np.float32(1.0) - ag), 1.0)
+        u = torch.where(active, float(ag * self._target)
+                        / torch.clamp(p, min=1e-30), 0.0)
+        g = linrec_first_order(u, a, g0)
+        y = torch.where(active, torch.sqrt(g) * x, x)
+        return (p[..., -1], g[..., -1]), y
+
+
+__all__ = ["PLLBlock", "PilotRecoveryBlock", "AGCBlock",
+           "pilot_normalize_multiply"]

@@ -1,8 +1,12 @@
 """Filtering blocks on the main path.
 
 Equivalents of the reference's filter family
-(radio/blocks/signal/firfilter.lua, iirfilter.lua, lowpassfilter.lua,
-fmdeemphasisfilter.lua).  FIR filters run as float32 convolutions
+(radio/blocks/signal/firfilter.lua, iirfilter.lua, the windowed-sinc
+designs lowpassfilter.lua, highpassfilter.lua, bandpassfilter.lua,
+bandstopfilter.lua, complexbandpassfilter.lua, complexbandstopfilter.lua,
+and the single-pole designs singlepolelowpassfilter.lua,
+singlepolehighpassfilter.lua, fmdeemphasisfilter.lua,
+fmpreemphasisfilter.lua).  FIR filters run as float32 convolutions
 (ops/fir.py); single-pole IIR recurrences as blocked matrix products
 (ops/scan.py).
 """
@@ -164,22 +168,62 @@ class LowpassFilterBlock(_DesignedFIRBlock):
                                             self.window)
 
 
-class ComplexBandpassFilterBlock(_DesignedFIRBlock):
-    """Complex (single-sided) bandpass; cutoffs in Hz, negative allowed
-    (reference: complexbandpassfilter.lua)."""
+class HighpassFilterBlock(_DesignedFIRBlock):
+    def __init__(self, num_taps: int, cutoff: float,
+                 nyquist: float | None = None, window: str = "hamming"):
+        super().__init__(num_taps)
+        self.cutoff = cutoff
+        self.nyquist = nyquist
+        self.window = window
+
+    def design_taps(self):
+        nyq = self.nyquist or (self.get_rate() / 2.0)
+        return filter_design.firwin_highpass(self.num_taps,
+                                             self.cutoff / nyq, self.window)
+
+
+class _BandFIRBlock(_DesignedFIRBlock):
+    """A two-edge windowed-sinc design; cutoffs in Hz."""
+
+    _design = None
+    _complex = False
 
     def __init__(self, num_taps: int, cutoffs, nyquist: float | None = None,
                  window: str = "hamming"):
-        super().__init__(num_taps, complex_taps=True)
+        super().__init__(num_taps, complex_taps=self._complex)
         self.cutoffs = tuple(cutoffs)
         self.nyquist = nyquist
         self.window = window
 
     def design_taps(self):
         nyq = self.nyquist or (self.get_rate() / 2.0)
-        return filter_design.firwin_complex_bandpass(
+        return self._design(
             self.num_taps, (self.cutoffs[0] / nyq, self.cutoffs[1] / nyq),
             self.window)
+
+
+class BandpassFilterBlock(_BandFIRBlock):
+    _design = staticmethod(filter_design.firwin_bandpass)
+
+
+class BandstopFilterBlock(_BandFIRBlock):
+    _design = staticmethod(filter_design.firwin_bandstop)
+
+
+class ComplexBandstopFilterBlock(_BandFIRBlock):
+    """Complex (single-sided) bandstop; cutoffs in Hz, negative allowed
+    (reference: complexbandstopfilter.lua)."""
+
+    _design = staticmethod(filter_design.firwin_complex_bandstop)
+    _complex = True
+
+
+class ComplexBandpassFilterBlock(_BandFIRBlock):
+    """Complex (single-sided) bandpass; cutoffs in Hz, negative allowed
+    (reference: complexbandpassfilter.lua)."""
+
+    _design = staticmethod(filter_design.firwin_complex_bandpass)
+    _complex = True
 
 
 def _singlepole_lowpass_coeffs(cutoff: float, rate: float):
@@ -189,6 +233,29 @@ def _singlepole_lowpass_coeffs(cutoff: float, rate: float):
     b = np.array([k / (1 + k), k / (1 + k)])
     a = np.array([1.0, (k - 1) / (1 + k)])
     return b, a
+
+
+class SinglepoleLowpassFilterBlock(IIRFilterBlock):
+    def __init__(self, cutoff: float):
+        super().__init__([1.0], [1.0])
+        self.cutoff = cutoff
+
+    def _design_ba(self):
+        return _singlepole_lowpass_coeffs(self.cutoff, self.get_rate())
+
+
+class SinglepoleHighpassFilterBlock(IIRFilterBlock):
+    """1-pole highpass H(s) = (s/wc)/(1 + s/wc) via bilinear transform
+    (reference: singlepolehighpassfilter.lua)."""
+
+    def __init__(self, cutoff: float):
+        super().__init__([1.0], [1.0])
+        self.cutoff = cutoff
+
+    def _design_ba(self):
+        k = np.tan(np.pi * self.cutoff / self.get_rate())
+        return (np.array([1 / (1 + k), -1 / (1 + k)]),
+                np.array([1.0, (k - 1) / (1 + k)]))
 
 
 class FMDeemphasisFilterBlock(IIRFilterBlock):
@@ -202,6 +269,15 @@ class FMDeemphasisFilterBlock(IIRFilterBlock):
     def _design_ba(self):
         cutoff = 1.0 / (2 * np.pi * self.tau)
         return _singlepole_lowpass_coeffs(cutoff, self.get_rate())
+
+
+class FMPreemphasisFilterBlock(SinglepoleHighpassFilterBlock):
+    """FM preemphasis: the single-pole highpass at 1/(2*pi*tau), as the
+    reference delegates it (fmpreemphasisfilter.lua:24-27)."""
+
+    def __init__(self, tau: float):
+        super().__init__(1.0 / (2 * np.pi * tau))
+        self.tau = tau
 
 
 class DecimatingFIRBlock(SignalBlock):
@@ -296,6 +372,9 @@ class HilbertTransformBlock(SignalBlock):
 
 __all__ = [
     "FIRFilterBlock", "IIRFilterBlock", "DecimatingFIRBlock",
-    "LowpassFilterBlock", "ComplexBandpassFilterBlock",
-    "FMDeemphasisFilterBlock", "HilbertTransformBlock",
+    "LowpassFilterBlock", "HighpassFilterBlock", "BandpassFilterBlock",
+    "BandstopFilterBlock", "ComplexBandpassFilterBlock",
+    "ComplexBandstopFilterBlock", "SinglepoleLowpassFilterBlock",
+    "SinglepoleHighpassFilterBlock", "FMDeemphasisFilterBlock",
+    "FMPreemphasisFilterBlock", "HilbertTransformBlock",
 ]

@@ -1,8 +1,9 @@
 """Sample-rate and plumbing blocks (reference:
-radio/blocks/signal/{downsampler,delay}.lua).  Rate-changing blocks declare
-exact rational rate ratios and chunk-multiple constraints so the graph
-planner keeps every chunk a multiple of the factor; the per-call phase
-state the reference carries (downsampler.lua:45-55) is then unnecessary."""
+radio/blocks/signal/{downsampler,upsampler,delay}.lua).  Rate-changing
+blocks declare exact rational rate ratios and chunk-multiple constraints
+so the graph planner keeps every chunk a multiple of the factor; the
+per-call phase state the reference carries (downsampler.lua:45-55) is
+then unnecessary."""
 
 from __future__ import annotations
 
@@ -40,6 +41,29 @@ class DownsamplerBlock(SignalBlock):
         return state, x[..., ::self.factor]
 
 
+class UpsamplerBlock(SignalBlock):
+    """Zero-stuffing upsampler: y[n*L] = x[n], zeros between
+    (reference: upsampler.lua)."""
+
+    def __init__(self, factor: int):
+        super().__init__()
+        if factor < 1:
+            raise ValueError("factor must be >= 1")
+        self.factor = int(factor)
+        for t in (ComplexFloat32, Float32):
+            self.add_type_signature([Input("in", t)], [Output("out", t)])
+
+    def get_rate_ratio(self):
+        return Fraction(self.factor)
+
+    def process(self, state, x):
+        if self.factor == 1:
+            return state, x
+        y = x.new_zeros(x.shape[:-1] + (x.shape[-1] * self.factor,))
+        y[..., ::self.factor] = x
+        return state, y
+
+
 class DelayBlock(SignalBlock):
     """Delay by N samples through a carried sample line
     (reference: delay.lua)."""
@@ -65,4 +89,4 @@ class DelayBlock(SignalBlock):
         return xin[..., n:], xin[..., :n]
 
 
-__all__ = ["DownsamplerBlock", "DelayBlock"]
+__all__ = ["DownsamplerBlock", "UpsamplerBlock", "DelayBlock"]

@@ -1,6 +1,7 @@
-"""Signal generator source: the reference's radio/blocks/sources/signal.lua.
-A device source: each chunk is generated on the card from a wrapped phase
-kept as state, so the source costs one elementwise pass."""
+"""Device sources: zero, signal generator, uniform random (the reference's
+radio/blocks/sources/{zero,signal,uniformrandom}.lua).  Each chunk is
+generated on the graph's device, so a source costs one elementwise pass
+(or one allocation, for zeros) and no host-to-device copy."""
 
 from __future__ import annotations
 
@@ -9,7 +10,28 @@ import torch
 
 from luaradio_tpu_torch.core.block import Output, SignalSourceBlock
 from luaradio_tpu_torch.ops.mixer import FracRamp, PhasorRamp
-from luaradio_tpu_torch.types import ComplexFloat32, Float32
+from luaradio_tpu_torch.blocks.signal.sampling import _TORCH_DTYPES
+from luaradio_tpu_torch.types import (Bit, Byte, ComplexFloat32, Float32,
+                                      SampleType)
+
+
+class ZeroSource(SignalSourceBlock):
+    """Source of zero samples of any basic type (reference: zero.lua)."""
+
+    def __init__(self, data_type: SampleType, rate: float):
+        super().__init__()
+        self.data_type = data_type
+        self.rate = rate
+        self.add_type_signature([], [Output("out", data_type)])
+
+    def generate(self, state, length: int):
+        return state, torch.zeros((length,),
+                                  dtype=_TORCH_DTYPES[self.data_type.dtype],
+                                  device=self.device)
+
+
+#: Alias kept for reference parity (NullSource == ZeroSource there too).
+NullSource = ZeroSource
 
 
 class SignalSource(SignalSourceBlock):
@@ -80,4 +102,43 @@ class SignalSource(SignalSourceBlock):
         return state, y
 
 
-__all__ = ["SignalSource"]
+class UniformRandomSource(SignalSourceBlock):
+    """Uniform random samples of any basic type (reference:
+    uniformrandom.lua): ComplexFloat32 and Float32 in [a, b) (default
+    [-1, 1), both parts of a complex sample), Byte in [a, b] (default
+    [0, 255]), Bit in {0, 1}.  Drawn on the graph's device from a
+    ``torch.Generator`` seeded with ``seed`` (0 when None), which is the
+    block's state: each chunk continues the stream.  The stream is
+    deterministic for a seed on one device type; it is not the JAX
+    package's rbg stream."""
+
+    def __init__(self, data_type: SampleType, rate: float, range=None,
+                 seed: int | None = None):
+        super().__init__()
+        if data_type not in (ComplexFloat32, Float32, Byte, Bit):
+            raise ValueError("unsupported data type")
+        self.data_type = data_type
+        self.rate = rate
+        self.range = tuple(range) if range else None
+        self.seed = 0 if seed is None else int(seed)
+        self.add_type_signature([], [Output("out", data_type)])
+
+    def init_state(self):
+        return torch.Generator(device=self.device).manual_seed(self.seed)
+
+    def generate(self, state, length: int):
+        t, dev = self.data_type, self.device
+        if t in (ComplexFloat32, Float32):
+            a, b = self.range or (-1.0, 1.0)
+            shape = (2, length) if t == ComplexFloat32 else (length,)
+            v = torch.rand(shape, generator=state, device=dev) \
+                * float(np.float32(b) - np.float32(a)) + float(np.float32(a))
+            return state, (torch.complex(v[0], v[1]) if t == ComplexFloat32
+                           else v)
+        a, b = (self.range or (0, 255)) if t == Byte else (0, 1)
+        y = torch.randint(int(a), int(b) + 1, (length,), generator=state,
+                          device=dev, dtype=torch.int32)
+        return state, y.to(torch.uint8)
+
+
+__all__ = ["ZeroSource", "NullSource", "SignalSource", "UniformRandomSource"]

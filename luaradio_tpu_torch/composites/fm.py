@@ -1,6 +1,6 @@
 """FM demodulator composites: the reference's
-radio/composites/{wbfmmonodemodulator,wbfmstereodemodulator}.lua.  (NBFM
-is a later slice of the port.)"""
+radio/composites/{wbfmmonodemodulator,wbfmstereodemodulator,
+nbfmdemodulator}.lua."""
 
 from __future__ import annotations
 
@@ -99,4 +99,20 @@ class WBFMStereoDemodulator(CompositeBlock):
         self.connect(self, "right", right_af_deemphasis, "out")
 
 
-__all__ = ["WBFMMonoDemodulator", "WBFMStereoDemodulator"]
+class NBFMDemodulator(CompositeBlock):
+    """Narrowband FM: RF filter, discriminator, AF filter
+    (reference: nbfmdemodulator.lua)."""
+
+    def __init__(self, deviation: float = 5e3, bandwidth: float = 4e3):
+        super().__init__()
+        rf_filter = LowpassFilterBlock(128, deviation + bandwidth)
+        fm_demod = FrequencyDiscriminatorBlock(deviation / bandwidth)
+        af_filter = LowpassFilterBlock(128, bandwidth)
+        self.connect(rf_filter, fm_demod, af_filter)
+        self.add_type_signature([Input("in", ComplexFloat32)],
+                                [Output("out", Float32)])
+        self.connect(self, "in", rf_filter, "in")
+        self.connect(self, "out", af_filter, "out")
+
+
+__all__ = ["WBFMMonoDemodulator", "WBFMStereoDemodulator", "NBFMDemodulator"]

@@ -8,7 +8,9 @@ Port design: each *stage* of device blocks runs as one step function
 ``step(states, ext_inputs) -> (states, outputs)`` over torch tensors on the
 graph's device; block boundaries inside a segment cost one tensor hand-off.
 A host "pump" drives chunks: a read-ahead thread reads host sources and
-copies each chunk to the card, the pump feeds the segments, and boundary
+copies each chunk to the card (a repeating file source may hold its whole
+file on the card instead, read as windows of a device-resident ring with
+no copy), the pump feeds the segments, and boundary
 outputs are copied back to the host asynchronously for the host blocks
 (file sinks).  PyTorch queues the card's work asynchronously, so host I/O
 for one chunk overlaps device compute of the previous one.
@@ -209,15 +211,30 @@ class Runner:
 
         # A host source whose outputs feed only device blocks has its
         # chunks copied to the device by the read-ahead thread, as raw
-        # wire items where the source converts exactly on the device.
+        # wire items where the source converts exactly on the device.  A
+        # repeating file source among them that can hold its whole file
+        # on the device (resident_setup) is read from that ring instead:
+        # no host read and no host-to-device copy per chunk.
         self.wire_ingest: dict[str, Any] = {}
         self._wire_srcs: set[int] = set()
+        self._resident_srcs: set[int] = set()
         self._transfer_keys: set[str] = set()
         for s in self.sources:
             keys = [f"{self.bid[id(s)]}.{oi}" for oi in range(len(s.outputs))]
             all_dev = all(c.block.domain == "device"
                           for oi in range(len(s.outputs))
                           for c in g.consumers(PortRef(s, oi)))
+            if (all_dev and len(s.outputs) == 1
+                    and hasattr(s, "resident_setup")
+                    and s.resident_setup(g.out_chunk[id(s)])):
+                self._resident_srcs.add(id(s))
+                continue
+            if getattr(s, "resident", None) is True:
+                raise ValueError(
+                    f"{s.name}: resident=True, but the source cannot hold a "
+                    f"device-resident ring here (it needs repeat_on_eof, "
+                    f"a payload within RESIDENT_BUDGET and outputs that "
+                    f"feed only device blocks)")
             if not all_dev:
                 continue
             self._transfer_keys.update(keys)
@@ -247,6 +264,10 @@ class Runner:
             for oi in range(len(h.outputs))
             for c in g.consumers(PortRef(h, oi)))
 
+        #: host-to-device copies of source and host-block data so far
+        #: (from the read-ahead thread and the pump, hence the lock)
+        self.h2d_copies = 0
+        self._h2d_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._chunk_budget: int | None = None
@@ -263,13 +284,21 @@ class Runner:
         the read-ahead thread)."""
         if key not in self._transfer_keys or not isinstance(value, np.ndarray):
             return value
-        return to_device(value, self.device)
+        return self._to_device(value)
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        with self._h2d_lock:
+            self.h2d_copies += 1
+        return to_device(arr, self.device)
 
     def _next_chunk(self):
         """One chunk of source data, via the read-ahead thread (lazily
-        started)."""
+        started).  When every source is device-resident there is no host
+        read or copy to overlap, so the pump reads the windows itself."""
         if not self.sources:
             return {}, {}, False
+        if all(id(s) in self._resident_srcs for s in self.sources):
+            return self._read_sources()
         if self._prefetcher is None:
             self._prefetcher = _Prefetcher(self._read_sources,
                                            self._prefetch_put,
@@ -287,6 +316,11 @@ class Runner:
         eof = False
         for s in self.sources:
             want = g.out_chunk[id(s)]
+            if id(s) in self._resident_srcs:
+                key = f"{self.bid[id(s)]}.0"
+                values[key] = s.resident_read(want)
+                nvalid[key] = want
+                continue
             if id(s) in self._wire_srcs:
                 wr = s.wire_read(want)
                 if wr is None:
@@ -340,7 +374,7 @@ class Runner:
                     v = np.concatenate([v, np.zeros(
                         v.shape[:-1] + (want - v.shape[-1],), v.dtype)],
                         axis=-1)
-                v = to_device(v, self.device)
+                v = self._to_device(v)
             ext[k] = v
         outs = seg.run(ext)
         # start the copies host blocks need now; they complete while the

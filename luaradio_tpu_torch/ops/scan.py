@@ -12,6 +12,14 @@ so a chunk costs a few passes over memory instead of N sequential steps.
 A complex coefficient (the eigenvalues of the PLL's loop matrix,
 ops/pll_linear.py) takes the same blocks as complex64 matrices built in
 complex128; a real coefficient keeps its real float32 matrices.
+
+A per-sample coefficient a[n] (the AGC's gain gate, blocks/signal/
+carrier.py) has no Toeplitz matrix.  It takes the JAX package's blocked
+affine scan instead: (a, u) pairs combine as (a1 a2, a2 u1 + u2), solved
+by Hillis-Steele doubling inside blocks of 256, the block summaries by the
+same scan one level up, then each block adds its cumulative product times
+the value entering it.  Only products of the a[n] are formed, never a
+quotient, so a long run of a = 1 (a hold) or of small a stays exact.
 """
 
 from __future__ import annotations
@@ -63,12 +71,56 @@ def _linrec_rows(u: torch.Tensor, a: float | complex,
     return y.reshape(m, nb * _B)[:, :n]
 
 
+_AB = 256   # block of the per-sample coefficient's scan (the JAX package's)
+
+
+def _affine_scan_doubling(a: torch.Tensor, u: torch.Tensor):
+    """Inclusive affine scan along the last axis by Hillis-Steele doubling:
+    returns (prod a[0..n], y[n] from a zero start)."""
+    n = a.shape[-1]
+    d = 1
+    while d < n:
+        a_prev = torch.cat([torch.ones_like(a[..., :d]), a[..., :-d]], -1)
+        u_prev = torch.cat([torch.zeros_like(u[..., :d]), u[..., :-d]], -1)
+        u = a * u_prev + u
+        a = a_prev * a
+        d *= 2
+    return a, u
+
+
+def _linrec_array(u: torch.Tensor, a: torch.Tensor,
+                  y0: torch.Tensor) -> torch.Tensor:
+    """y[n] = a[n] y[n-1] + u[n] for u, a [..., N], y0 [...]."""
+    n = u.shape[-1]
+    if n <= _AB:
+        acum, ucum = _affine_scan_doubling(a, u)
+        return acum * y0[..., None] + ucum
+    nb = -(-n // _AB)
+    if nb * _AB != n:        # identity steps after the end change nothing
+        pad = nb * _AB - n
+        a = torch.cat([a, a.new_ones(a.shape[:-1] + (pad,))], -1)
+        u = torch.cat([u, u.new_zeros(u.shape[:-1] + (pad,))], -1)
+    lead = u.shape[:-1]
+    acum, ucum = _affine_scan_doubling(a.reshape(lead + (nb, _AB)),
+                                       u.reshape(lead + (nb, _AB)))
+    ends = _linrec_array(ucum[..., -1], acum[..., -1], y0)  # y at block ends
+    cin = torch.cat([y0[..., None], ends[..., :-1]], -1)    # y entering
+    y = acum * cin[..., None] + ucum
+    return y.reshape(lead + (nb * _AB,))[..., :n]
+
+
 def linrec_first_order(u: torch.Tensor, a, y0: torch.Tensor) -> torch.Tensor:
     """Solve y[n] = a*y[n-1] + u[n] along the last axis.
 
     u: [..., N] float32 or complex64; a: real or complex scalar with
-    |a| <= 1 (a complex ``a`` makes y complex64); y0: [...] the value
+    |a| <= 1 (a complex ``a`` makes y complex64), or a per-sample
+    coefficient a[n], a tensor broadcastable to u; y0: [...] the value
     before the chunk.  Returns y: [..., N]."""
+    if isinstance(a, torch.Tensor) and a.dim() > 0:
+        a = a.to(u.dtype).expand(u.shape)
+        y0 = torch.as_tensor(y0, dtype=u.dtype,
+                             device=u.device).expand(u.shape[:-1])
+        return _linrec_array(u, a, y0)
     if abs(a) > 1:
         raise ValueError(f"linrec_first_order: unstable coefficient {a}")
     lead, n = u.shape[:-1], u.shape[-1]

@@ -422,7 +422,8 @@ def test_parse_spec_and_unknown_names():
                    "print", "100e6"], device="cpu")
     with pytest.raises(SystemExit):
         port_main(["-a", "rx_wbfm"])              # missing -i/-o
-    assert sorted(applications.APPLICATIONS) == ["rx_wbfm"]
+    assert sorted(applications.APPLICATIONS) == [
+        "iq_converter", "rx_am", "rx_nbfm", "rx_raw", "rx_ssb", "rx_wbfm"]
     assert sorted(applications.INPUTS) == ["iqfile"]
     assert sorted(applications.OUTPUTS) == ["benchmark", "iqfile",
                                             "wavfile"]
