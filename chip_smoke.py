@@ -72,16 +72,28 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     4 Mi-sample repeating u8 IQFileSource, streamed and device-resident,
     each for ~3 s; the resident run must make no host-to-device copy and
     give the streamed run's audio exactly over its first 3 chunks;
-13. the kernels line and the final status line.
+13. digital: rx_rds through the CLI over an 8 s capture at 1 102 500
+    S/s (0.5 s of noise, then broadcast FM at 75 kHz deviation carrying
+    the multiplex of tests/core/test_receivers.py with random RDS groups
+    whose types lie outside 0, 2 and 4, ~30 dB SNR), where K3 must launch
+    (multiplier 3: K3's third path) and is held against its twin on every
+    chunk it took, the overlap scan against its twin on every chunk it
+    ran, and 80 % of the groups sent after 1.5 s must come out as raw
+    packets with none that was not sent; K3 timed at the RDS path's chunk
+    beside phase 8's chain floor; then rx_pocsag and rx_ax25 at 1 102 500
+    S/s and rx_ert --protocols=scm at 2 359 296 S/s through the CLI, each
+    message equal to the one sent, and BPSK31Receiver as a graph at
+    8000 S/s, whose text must come out;
+14. the kernels line and the final status line.
 
 Launch counts are zeroed just before the flagship, the K2 graph run, the
-stereo CLI run, the overlap path run and the rx_am --synchronous run and
-read just after: each kernel must have run on its path.  Any failure
+stereo CLI run, the overlap path run, the rx_am --synchronous run and the
+rx_rds run and read just after: each kernel must have run on its path.  Any failure
 raises (non-zero exit); a hang ends the run with a traceback after 480 s.
 ``--profile PATH`` also writes a torch.profiler table of one mono graph
 run to PATH, of the stereo run to PATH.stereo.txt, of the rx_am
---synchronous run to PATH.am.txt and of 50 chunks of each bench graph to
-PATH.bench_<row>.txt.
+--synchronous run to PATH.am.txt, of 50 chunks of each bench graph to
+PATH.bench_<row>.txt and of the rx_rds run to PATH.rds.txt.
 """
 
 from __future__ import annotations
@@ -99,12 +111,17 @@ import wave
 import numpy as np
 import torch
 
-from luaradio_tpu_torch import (BenchmarkSink, ComplexFloat32,
-                                CompositeBlock, DownsamplerBlock, Input,
-                                IQFileSource, SinkBlock, TunerBlock,
-                                UniformRandomSource, WAVFileSink,
-                                WBFMMonoDemodulator, WBFMStereoDemodulator)
+from luaradio_tpu_torch import (VARICODE, BenchmarkSink, BPSK31Receiver,
+                                ComplexFloat32, CompositeBlock,
+                                DownsamplerBlock, Input, IQFileSource,
+                                SinkBlock, TunerBlock, UniformRandomSource,
+                                WAVFileSink, WBFMMonoDemodulator,
+                                WBFMStereoDemodulator)
 from luaradio_tpu_torch import cli
+from luaradio_tpu_torch.blocks.protocol import ax25 as ax25_proto
+from luaradio_tpu_torch.blocks.protocol import ert as ert_proto
+from luaradio_tpu_torch.blocks.protocol import pocsag as pocsag_proto
+from luaradio_tpu_torch.blocks.protocol import rds as rds_proto
 from luaradio_tpu_torch.blocks.signal import carrier
 from luaradio_tpu_torch.core.runtime import Runner
 from luaradio_tpu_torch.ops import cudabuild, pll, pll_overlap, wbfm
@@ -114,6 +131,7 @@ from luaradio_tpu_torch.ops.fir import _conv_real
 from luaradio_tpu_torch.parallel.flagship import (INV_GAIN,
                                                   make_wbfm_mono_step,
                                                   wbfm_mono_taps)
+from luaradio_tpu_torch.types import number_to_bits
 from luaradio_tpu_torch.utils import format as format_utils
 
 T0 = time.monotonic()
@@ -149,6 +167,9 @@ ANALOG_S = 4
 #: bench.py's graph rows: a 2^22-sample chunk at 256 kS/s, a 4 Mi-sample
 #: u8 capture for the file rows, and the seconds each row runs
 BENCH_CHUNK, BENCH_FILE, BENCH_S = 1 << 22, 4 << 20, 3.0
+#: the digital phase: the RDS capture's seconds, the RDS bit rate, and
+#: the ERT capture's rate (36 x 65 536: whole samples a chip)
+DIGITAL_S, RDS_BAUD, ERT_RATE = 8, 1187.5, 2359296
 
 
 def log(phase: str, msg: str):
@@ -1456,6 +1477,343 @@ def phase_bench_graphs(tmp, dev, smi, profile):
     return rows
 
 
+# -- the digital receivers ---------------------------------------------------
+
+def rds_group_bits(blocks4):
+    """Four 16-bit words -> the 104 bits of an RDS group, each word with
+    its check word and offset (the RDS Standard's encoder, from the
+    port's generator polynomial and offset words)."""
+    return np.concatenate([number_to_bits(
+        (data << 10) | (rds_proto._poly_mod(data << 10, 26)
+                        ^ rds_proto.RDS_OFFSET_WORDS[name]), 26)
+        for name, data in zip("ABCD", blocks4)])
+
+
+def manchester_diff(bits):
+    """Differential-encode, then Manchester-encode (1 -> 10, 0 -> 01)."""
+    diff = np.bitwise_xor.accumulate(np.asarray(bits, np.uint8))
+    chips = np.empty(2 * len(diff), np.uint8)
+    chips[0::2], chips[1::2] = diff, 1 - diff
+    return chips
+
+
+def write_rds_capture(tmp):
+    """DIGITAL_S seconds at RATE, f32le: NOISE_S s of noise, then
+    broadcast FM at 75 kHz peak deviation of the multiplex of
+    tests/core/test_receivers.py:84-93 (0.2 * an 800 Hz tone, 0.1 * the
+    19 kHz pilot, 0.06 * the coded BPSK on 57 kHz) at ~30 dB SNR,
+    carrying random RDS groups whose group types lie outside 0, 2 and 4
+    (each decodes as a raw packet).  Returns (path, samples, [(start in
+    seconds, group)])."""
+    rng = np.random.default_rng(21)
+    n, n0 = DIGITAL_S * RATE, int(NOISE_S * RATE)
+    count = int((DIGITAL_S - NOISE_S) * RDS_BAUD / 104)
+    codes = rng.choice([c for c in range(16) if c not in (0, 2, 4)], count)
+    groups = [(int(rng.integers(0, 1 << 16)),
+               (int(c) << 12) | int(rng.integers(0, 1 << 11)),
+               int(rng.integers(0, 1 << 16)), int(rng.integers(0, 1 << 16)))
+              for c in codes]
+    chips = manchester_diff(np.concatenate([rds_group_bits(g)
+                                            for g in groups]))
+    t = np.arange(n - n0) / RATE
+    k = np.minimum((t * 2 * RDS_BAUD).astype(np.int64), len(chips) - 1)
+    mpx = (0.2 * np.sin(2 * np.pi * 800.0 * t)
+           + 0.1 * np.cos(2 * np.pi * 19e3 * t)
+           + 0.06 * (2.0 * chips[k] - 1.0) * np.cos(2 * np.pi * 57e3 * t))
+    del t, k
+    z = np.zeros(n, np.complex64)
+    z[n0:] = np.exp(2j * np.pi * 75e3 / 0.36 / RATE * np.cumsum(mpx))
+    del mpx
+    path = write_iq(tmp, "rds.f32.iq", noisy(z, n0, 21))
+    return path, n, [(NOISE_S + 104 * i / RDS_BAUD, g)
+                     for i, g in enumerate(groups)]
+
+
+def rds_pll_params():
+    """alpha, beta, fmin, fmax of rx_rds's pilot PLL at its IF rate
+    (PLLBlock(1500, 19e3 - 100, 19e3 + 100, multiplier=3); the tuner
+    decimates 1 102 500 S/s by 4)."""
+    blk = carrier.PLLBlock(1500.0, 19e3 - 100, 19e3 + 100, multiplier=3)
+    blk.input_rate = RATE / 4
+    blk.initialize()
+    return blk._alpha, blk._beta, blk._freq_min, blk._freq_max
+
+
+def read_json_lines(path):
+    with open(path) as fh:
+        return [json.loads(ln) for ln in fh.read().splitlines()]
+
+
+def phase_rds(tmp, dev, profile=None):
+    """rx_rds through the CLI over DIGITAL_S s (NOISE_S s of noise
+    first): K3 must launch (multiplier 3; its count zeroed just before
+    the run) and is held against its twin on every chunk it took; the
+    overlap scan, where it ran, against its twin on its chunks.  Of the
+    groups sent after 1.5 s, 80 % must come out as raw packets, and no
+    packet may carry a group that was not sent.  Returns the K3 record
+    of the path (with the first chunk K3 took, for timing)."""
+    path, n, sent = write_rds_capture(tmp)
+    log("rds", f"capture: {n} samples ({DIGITAL_S} s) at {RATE} S/s, "
+               f"f32le; noise for the first {NOISE_S} s, then FM at 75 kHz "
+               f"with {len(sent)} RDS groups at ~30 dB SNR")
+    argv = ["-a", "rx_rds", "-i", f"iqfile:{path},rate={RATE}", "-o"]
+    run_cli(argv + [f"json:{os.path.join(tmp, 'warm.json')}", "0"], dev)
+    out = os.path.join(tmp, "rds.json")
+    taken, scanned = [], []
+    seen, restore_k3 = record_pll_chunks(taken, pll.pll_phase)
+    _, restore_scan = record_pll_chunks(scanned)
+    try:
+        pll.pll_phase.launches = 0
+        pll_overlap.pll_overlap_discard.launches = 0
+        rc, dt = run_cli(argv + [f"json:{out}", "0"], dev)
+        launches = pll.pll_phase.launches
+        scans = pll_overlap.pll_overlap_discard.launches
+    finally:
+        restore_scan()
+        restore_k3()
+    tiers = [t_[0] for _, t_ in seen]
+    if rc != 0 or launches < 1 or launches != tiers.count(3) \
+            or len(taken) != launches or len(scanned) != scans:
+        raise AssertionError(f"rx_rds: rc {rc}, K3 launches {launches} "
+                             f"over tiers {tiers} ({len(taken)} recorded), "
+                             f"scan launches {scans} ({len(scanned)} "
+                             f"recorded)")
+    packets = read_json_lines(out)
+    groups = {g for _, g in sent}
+    got = [tuple(p["data"].get("frame", ())) for p in packets]
+    stray = [p for p, g in zip(packets, got)
+             if p["data"].get("type") != "raw" or g not in groups]
+    late = [g for start, g in sent if start >= 1.5]
+    found = len(set(late) & set(got))
+    if stray or found < 0.8 * len(late):
+        raise AssertionError(f"rx_rds: {found} of the {len(late)} groups "
+                             f"sent after 1.5 s decoded (limit 80 %); "
+                             f"{len(stray)} packets not sent: {stray[:3]}")
+    chunk = seen[0][0]
+    log("rds", f"CLI rx_rds: {n / dt / 1e6:.2f} M complex samples/s end "
+               f"to end ({dt:.3f} s); {len(packets)} packets, {found} of "
+               f"the {len(late)} groups sent after 1.5 s (limit 80 %), "
+               f"none unsent; K3 launches {launches}, overlap scan "
+               f"launches {scans} over {len(seen)} PLL chunks of {chunk} "
+               f"samples (tiers: linear {tiers.count(1)}, overlap "
+               f"{tiers.count(2)}, sequential {tiers.count(3)})")
+    err = 0.0
+    for i, (x, state, p) in enumerate(taken):
+        err = max(err, compare_pll(f"rds chunk {i}", x,
+                                   torch.stack(state).to(dev), p[:4],
+                                   float(p[4])))
+    log("K3", f"on the {len(taken)} chunks rx_rds gave it (multiplier 3): "
+              f"max |kernel - twin| {err:.3g} (limit 1e-5)")
+    scan_err = max((hold_overlap(f"rds chunk {i}", x, state, p)[0]
+                    for i, (x, state, p) in enumerate(scanned)),
+                   default=0.0)
+    if profile:
+        pout = os.path.join(tmp, "p.json")
+        profile_run(lambda: run_cli(argv + [f"json:{pout}", "0"], dev),
+                    f"{profile}.rds.txt", "rx_rds")
+    return {"launches": launches, "chunk": chunk, "max_abs_err": err,
+            "x": taken[0][0], "state": torch.stack(taken[0][1]).to(dev),
+            "sps": n / dt, "tiers": [tiers.count(k) for k in (1, 2, 3)],
+            "overlap_launches": scans, "overlap_err": scan_err}
+
+
+def time_k3_rds(rds, dev, ns_step):
+    """K3 at the RDS path's PLL chunk (multiplier 3, the RDS loop's
+    constants), on the first chunk the path gave it: a launch, device
+    time (CUDA-graph replay), the twin (host clock, one run), the bound
+    and the floor of the walker's dependency chain (phase 8's probe)."""
+    params = rds_pll_params()
+    x, state = rds["x"].contiguous(), rds["state"]
+    n = x.shape[0]
+
+    def run():
+        pll.pll_phase(x, state, *params, 3.0)
+    ms = median_ms(run)
+    dev_ms = graph_ms(run)
+    t0 = time.monotonic()
+    pll.pll_phase_reference(x, state, *params, 3.0)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    t_bytes = n * PLL_BYTES / HBM_BYTES_PER_S
+    t_ops = n * PLL_OPS / FP32_FLOP_PER_S
+    floor_ms = n * ns_step / 1e6
+    rec = {"launches": rds["launches"], "chunk": n, "ms": ms,
+           "graph_ms": dev_ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "chain_floor_ms": floor_ms, "floor_ratio": ms / floor_ms,
+           "graph_floor_ratio": dev_ms / floor_ms,
+           "max_abs_err": rds["max_abs_err"]}
+    log("K3", f"RDS path chunk [{n} samples, multiplier 3]: {ms:.4f} ms a "
+              f"launch (median of {REPS}), device {dev_ms:.4f} ms "
+              f"(CUDA-graph replay); twin {plain_ms:.1f} ms (host clock, "
+              f"one run); bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']}); chain floor {floor_ms:.4f} ms "
+              f"({ns_step:.3f} ns a step x {n}): {ms / floor_ms:.3f}x a "
+              f"launch, {dev_ms / floor_ms:.3f}x device")
+    return rec
+
+
+def pocsag_bits(address, func, text):
+    """A POCSAG transmission: the 576-bit preamble, a batch with the
+    address codeword at its frame and the 7-bit text after it, then an
+    idle batch (tests/core/test_receivers.py make_pocsag_iq)."""
+    text_bits = [(ord(ch) >> i) & 1 for ch in text + chr(0x17)
+                 for i in range(7)]
+    text_bits += [1] * (-len(text_bits) % 20)
+    words = [int("".join(map(str, text_bits[i:i + 20])), 2)
+             for i in range(0, len(text_bits), 20)]
+
+    def codeword(msg21):
+        w31 = (msg21 << 10) | pocsag_proto._bch_mod(msg21 << 10, 31)
+        return (w31 << 1) | (bin(w31).count("1") & 1)
+    batch, placed = [], False
+    for j in range(16):
+        if not placed and j >> 1 == address & 0x7:
+            batch.append(codeword(((address >> 3) << 2) | func))
+            placed = True
+        elif placed and words:
+            batch.append(codeword((1 << 20) | words.pop(0)))
+        else:
+            batch.append(pocsag_proto.POCSAG_IDLE_CODEWORD)
+    bits = [np.asarray([1, 0] * 288, np.uint8)]
+    for cws in (batch, [pocsag_proto.POCSAG_IDLE_CODEWORD] * 16):
+        bits += [number_to_bits(pocsag_proto.POCSAG_FRAME_SYNC_CODEWORD, 32)]
+        bits += [number_to_bits(cw, 32) for cw in cws]
+    return np.concatenate(bits)
+
+
+def fsk(symbols, baud, rate, freq_of):
+    """Phase-continuous FSK at ``rate``: symbol k lasts from k/baud s on
+    at frequency freq_of(symbol); complex64 unit phasors."""
+    n = int(len(symbols) * rate / baud)
+    k = np.minimum((np.arange(n) * baud / rate).astype(np.int64),
+                   len(symbols) - 1)
+    return np.exp(2j * np.pi * np.cumsum(freq_of(symbols[k])) / rate)
+
+
+def ax25_bits(addresses, control, pid, payload):
+    """An AX.25 frame between 30 HDLC flags each side, bit-stuffed
+    (tests/blocks/test_protocol.py ax25_encode, hdlc_stuff)."""
+    raw = []
+    for i, (call, ssid) in enumerate(addresses):
+        raw += [ord(ch) << 1 for ch in call.ljust(6)]
+        raw.append((ssid << 1) | (i == len(addresses) - 1))
+    raw += [control, pid, *payload]
+    bits = np.asarray([(b >> i) & 1 for b in raw for i in range(8)],
+                      np.uint8)
+    fcs = ax25_proto._crc16_x25(bits)
+    bits = np.concatenate([bits, [(fcs >> i) & 1 for i in range(16)]])
+    stuffed, ones = [], 0
+    for b in bits:
+        stuffed.append(int(b))
+        ones = ones + 1 if b else 0
+        if ones == 5:
+            stuffed.append(0)
+            ones = 0
+    flag = np.asarray([0, 1, 1, 1, 1, 1, 1, 0], np.uint8)
+    return np.concatenate([np.tile(flag, 30), stuffed, np.tile(flag, 30)])
+
+
+def scm_capture():
+    """An OOK Manchester SCM burst at ERT_RATE (tests/core/
+    test_receivers.py make_scm_iq): (iq, ert id, consumption)."""
+    ert_id, consumption = 0x1C0FFEE, 424242
+    msg = np.concatenate([
+        number_to_bits(ert_id >> 24, 2), number_to_bits(0, 1),
+        number_to_bits(2, 2), number_to_bits(4, 4), number_to_bits(1, 2),
+        number_to_bits(consumption, 24),
+        number_to_bits(ert_id & 0xFFFFFF, 24)])
+    crc = 0
+    for i in np.flatnonzero(msg):
+        crc ^= ert_proto._scm_code.syndromes[int(i)]
+    frame = np.concatenate([ert_proto.SCMFramerBlock.SCM_PREAMBLE, msg,
+                            number_to_bits(crc, 16)])
+    chips = np.empty(2 * len(frame))
+    chips[0::2], chips[1::2] = frame, 1 - frame
+    env = np.concatenate([np.zeros(40000),
+                          np.repeat(chips, ERT_RATE // 32768),
+                          np.zeros(60000)])
+    iq = env * np.exp(2j * np.pi * 0.11 * np.arange(len(env)))
+    return iq.astype(np.complex64), ert_id, consumption
+
+
+def bpsk31_capture(text):
+    """Differential BPSK31 at 8000 S/s, 0 = a phase reversal
+    (tests/core/test_receivers.py make_bpsk31_iq)."""
+    bits = [0] * 32
+    for ch in text:
+        bits += [int(c) for c in VARICODE[ord(ch)]] + [0, 0]
+    bits += [0] * 32
+    sym = np.cumprod(np.where(np.asarray(bits) == 0, -1.0, 1.0))
+    return np.concatenate([np.repeat(sym, 256),
+                           np.zeros(8192)]).astype(np.complex64)
+
+
+def phase_digital_others(tmp, dev):
+    """rx_pocsag, rx_ax25 (at RATE, which the CLI's tuner decimates to
+    its 12.5 kHz IF) and rx_ert --protocols=scm (at ERT_RATE) through the
+    CLI on the card, each message checked field by field; then
+    BPSK31Receiver as a graph on the card at 8000 S/s, whose text must
+    come out.  Returns each CLI run's complex samples/s."""
+    address, func, text = 0x12342, 2, "HI"
+    pocsag_iq = fsk(pocsag_bits(address, func, text), 1200, RATE,
+                    lambda b: np.where(b == 1, -4500.0, 4500.0))
+    nrzi = np.bitwise_xor.accumulate(
+        1 - ax25_bits([("NOCALL", 0x60), ("TPU", 0x61)], 0x03, 0xF0,
+                      b"hello from tpu radio"))
+    audio = np.sin(np.angle(fsk(nrzi, 1200, RATE, lambda s: np.where(
+        s == 0, 1200.0, 2200.0))))
+    ax25_iq = np.exp(2j * np.pi * 3e3 * np.cumsum(audio) / RATE)
+    del audio
+    scm_iq, ert_id, consumption = scm_capture()
+    runs = {
+        "rx_pocsag": (pocsag_iq, RATE, ["0"], lambda r: (
+            r["address"], r["func"], r["alphanumeric"]),
+            (address, func, text)),
+        "rx_ax25": (ax25_iq, RATE, ["0"], lambda r: (
+            r["addresses"][0]["callsign"],
+            r["addresses"][1]["callsign"].rstrip(), r["payload"]),
+            ("NOCALL", "TPU", "hello from tpu radio")),
+        "rx_ert": (scm_iq, ERT_RATE, ["--protocols=scm"], lambda r: (
+            r["ert_id"], r["consumption"]), (ert_id, consumption)),
+    }
+    sps = {}
+    for app, (iq, rate, args, fields, want) in runs.items():
+        pad = np.zeros(int(0.05 * rate), np.complex64)
+        path = write_iq(tmp, f"{app}.f32.iq", noisy(
+            np.concatenate([pad, iq.astype(np.complex64), pad]), 0,
+            len(app)))
+        argv = ["-a", app, "-i", f"iqfile:{path},rate={rate}", "-o"]
+        run_cli(argv + [f"json:{os.path.join(tmp, 'warm.json')}", *args],
+                dev)
+        out = os.path.join(tmp, f"{app}.json")
+        rc, dt = run_cli(argv + [f"json:{out}", *args], dev)
+        recs = read_json_lines(out)
+        if rc != 0 or not recs or fields(recs[0]) != want:
+            raise AssertionError(f"{app}: rc {rc}, decoded "
+                                 f"{[fields(r) for r in recs]} (want "
+                                 f"{want})")
+        n = os.path.getsize(path) // 8
+        sps[app] = n / dt
+        log("digital", f"CLI {app}: {len(recs)} message(s), the first "
+                       f"{want} as sent; {n} samples at {rate} S/s, "
+                       f"{n / dt / 1e6:.2f} M complex samples/s end to end")
+    text = "cq cq de tpu"
+    path = write_iq(tmp, "bpsk31.f32.iq", bpsk31_capture(text))
+    sink = _Collect()
+    top = CompositeBlock()
+    top.connect(IQFileSource(path, "f32le", 8000.0), BPSK31Receiver(), sink)
+    Runner(top, chunk_size=1 << 15, device=dev).run()
+    decoded = bytes(int(v) for a in sink.got for v in a).decode(
+        errors="replace")
+    if text not in decoded:
+        raise AssertionError(f"BPSK31Receiver: decoded {decoded!r}, "
+                             f"{text!r} not in it")
+    log("digital", f"BPSK31Receiver graph at 8000 S/s: {decoded!r}")
+    return sps
+
+
 def profile_run(run, out, what):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1538,6 +1896,14 @@ def main(argv):
         phase_analog(tmp, dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_bench_graphs(tmp, dev, smi, profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        rds = phase_rds(tmp, dev, profile)
+        phase_digital_others(tmp, dev)
+    k3["rds_path"] = time_k3_rds(rds, dev, k3["chain_ns_per_step"])
+    k3["max_abs_err"] = max(k3["max_abs_err"], rds["max_abs_err"])
+    overlap["rds_path_launches"] = rds["overlap_launches"]
+    overlap["max_abs_err"] = max(overlap["max_abs_err"], rds["overlap_err"])
+    del rds
     entries = [k1, k2, k3, overlap]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

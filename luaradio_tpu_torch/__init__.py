@@ -8,19 +8,23 @@ run on the card unless the caller passes ``device="cpu"``.
 
 The port holds the analog receivers end to end: rx_wbfm (mono and
 stereo), rx_am (envelope and synchronous), rx_nbfm, rx_ssb, rx_raw and
-iq_converter through the application dispatcher and CLI (``python -m
+iq_converter, and the digital ones: rx_rds, rx_pocsag, rx_ax25 and
+rx_ert, through the application dispatcher and CLI (``python -m
 luaradio_tpu_torch.cli``), with their blocks and composites (tuner,
-resamplers, the WBFM, NBFM, AM and SSB demodulators, the PLL and its
-three tiers, the AGC, the designed filters), the IQ file source with its
+resamplers, the WBFM, NBFM, AM and SSB demodulators, the RDS, POCSAG,
+AX.25, ERT and BPSK31 receivers, the PLL and its three tiers, the AGC,
+clock recovery, the masked Sampler, the designed and matched filters,
+the protocol framers and decoders), the IQ file source with its
 device-resident ring, the zero, signal and uniform random sources, the
-WAV/IQ/benchmark sinks, the graph optimizer, the runtime and the
-hand-fused flagship step.
+WAV/IQ/print/JSON/benchmark sinks, the graph optimizer, the runtime and
+the hand-fused flagship step.
 """
 
 __version__ = "0.1.0"
 
 from luaradio_tpu_torch import types  # noqa: F401
 from luaradio_tpu_torch.blocks import *  # noqa: F401,F403
+from luaradio_tpu_torch.blocks.protocol import *  # noqa: F401,F403
 from luaradio_tpu_torch.composites import *  # noqa: F401,F403
 from luaradio_tpu_torch.core import (Block, CompositeBlock,  # noqa: F401
                                      HostBlock, HostSourceBlock, Input,

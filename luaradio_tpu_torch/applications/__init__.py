@@ -4,8 +4,8 @@ radio/applications/init.lua: :4-195 factory tables, :282-322
 "name:arg,opt=val,..." spec parsing, :324-419 dispatch).
 
 Only the sources and sinks the port has are listed: ``INPUTS`` holds
-``iqfile``; ``OUTPUTS`` holds ``wavfile``, ``iqfile`` and ``benchmark``.
-Any other name raises."""
+``iqfile``; ``OUTPUTS`` holds ``wavfile``, ``iqfile``, ``print``,
+``json`` and ``benchmark``.  Any other name raises."""
 
 from __future__ import annotations
 
@@ -69,6 +69,9 @@ def _out_iqfile(spec, *a):
 OUTPUTS = {
     "wavfile": _out_wavfile,
     "iqfile": _out_iqfile,
+    "print": lambda spec, *a: radio.PrintSink(),
+    "json": lambda spec, *a: radio.JSONSink(
+        spec.args[0] if spec.args else None),
     "benchmark": lambda spec, *a: radio.BenchmarkSink(),
 }
 

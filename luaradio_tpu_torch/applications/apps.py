@@ -3,9 +3,8 @@ reference: radio/applications/*.lua).  Each application is a spec (name,
 description, supported inputs and outputs, arguments, options) plus a
 run(input, output, args, device) that builds and runs the flow graph.
 IF/AF decimation factors follow from the source rate as in the reference
-(rx_wbfm.lua:38-44).  The digital receivers (rx_rds, rx_ax25, rx_pocsag,
-rx_ert) are a later slice of the port: ``APPLICATIONS`` holds the ported
-ones only."""
+(rx_wbfm.lua:38-44).  ``APPLICATIONS`` holds the analog receivers,
+the digital ones (rx_rds, rx_ax25, rx_pocsag, rx_ert) and iq_converter."""
 
 from __future__ import annotations
 
@@ -35,6 +34,7 @@ _SDR_RATES = {  # per-input default sample rates (reference rx_wbfm.lua:6-18)
 }
 
 _AUDIO_OUTPUTS = ("pulseaudio", "portaudio", "wavfile")
+_DATA_OUTPUTS = ("print", "json", "networkclient", "networkserver")
 
 
 def _round(x):
@@ -187,6 +187,89 @@ class RxSSB(Application):
         top.run(device=device)
 
 
+class _RxDigital(Application):
+    """Shared shape of rx_rds / rx_ax25 / rx_pocsag: tuner + receiver +
+    data sink."""
+
+    TUNE_OFFSET = -100e3
+    IF_TARGET = 12.5e3
+    BANDWIDTH = 12e3
+
+    def make_receiver(self, args):
+        raise NotImplementedError
+
+    def run(self, input, output, args, device=None):
+        tune_offset = input.options.get("_tune_offset", self.TUNE_OFFSET)
+        frequency = float(args[0])
+        source = input.make(frequency + tune_offset, input.rate)
+        if_downsample = _round(source.get_rate() / self.IF_TARGET)
+        tuner = radio.TunerBlock(tune_offset, self.BANDWIDTH, if_downsample)
+        top = radio.CompositeBlock()
+        top.connect(source, tuner, self.make_receiver(args), output.make())
+        top.run(device=device)
+
+
+class RxRDS(_RxDigital):
+    TUNE_OFFSET = -250e3
+    IF_TARGET = 250e3
+    BANDWIDTH = 200e3
+
+    def __init__(self):
+        super().__init__(
+            "rx_rds", "RDS Receiver (on broadcast FM)",
+            arguments=[("frequency", "Station frequency in Hz")],
+            supported_inputs=_SDR_RATES, supported_outputs=_DATA_OUTPUTS)
+
+    def make_receiver(self, args):
+        return radio.RDSReceiver()
+
+
+class RxAX25(_RxDigital):
+    def __init__(self):
+        super().__init__(
+            "rx_ax25", "AX.25 Packet Radio Receiver",
+            arguments=[("frequency", "Station frequency in Hz")],
+            supported_inputs=_SDR_RATES, supported_outputs=_DATA_OUTPUTS)
+
+    def make_receiver(self, args):
+        return radio.AX25Receiver()
+
+
+class RxPOCSAG(_RxDigital):
+    def __init__(self):
+        super().__init__(
+            "rx_pocsag", "POCSAG Pager Receiver",
+            arguments=[("frequency", "Station frequency in Hz")],
+            options=[("baudrate", 1200, "Baudrate (512 or 1200)")],
+            supported_inputs=_SDR_RATES, supported_outputs=_DATA_OUTPUTS)
+
+    def make_receiver(self, args):
+        return radio.POCSAGReceiver(int(args.get("baudrate") or 1200))
+
+
+class RxERT(Application):
+    def __init__(self):
+        super().__init__(
+            "rx_ert", "ERT Utility Meter Receiver",
+            options=[("frequency", 915e6, "Center frequency in Hz"),
+                     ("sample-rate", None, "Sample rate in Hz"),
+                     ("protocols", "idm,scm,scm+", "Protocols to decode")],
+            supported_inputs=_SDR_RATES, supported_outputs=_DATA_OUTPUTS)
+
+    def run(self, input, output, args, device=None):
+        frequency = float(args.get("frequency") or 915e6)
+        rate = float(args.get("sample-rate") or input.rate)
+        protocols = (args.get("protocols") or "idm,scm,scm+").split(",")
+        source = input.make(frequency, rate)
+        receiver = radio.ERTReceiver(
+            protocols, decimation=input.options.get("_decimation", 6))
+        top = radio.CompositeBlock()
+        top.connect(source, "out", receiver, "in")
+        for i in range(len(protocols)):
+            top.connect(receiver, f"out{i+1}", output.make(), "in")
+        top.run(device=device)
+
+
 class IQConverter(Application):
     def __init__(self):
         super().__init__(
@@ -201,8 +284,10 @@ class IQConverter(Application):
 
 
 APPLICATIONS = {app.name: app for app in [
-    RxRaw(), RxWBFM(), RxNBFM(), RxAM(), RxSSB(), IQConverter(),
+    RxRaw(), RxWBFM(), RxNBFM(), RxAM(), RxSSB(), RxRDS(), RxAX25(),
+    RxPOCSAG(), RxERT(), IQConverter(),
 ]}
 
 __all__ = ["Application", "APPLICATIONS", "RxRaw", "RxWBFM", "RxNBFM",
-           "RxAM", "RxSSB", "IQConverter"]
+           "RxAM", "RxSSB", "RxRDS", "RxAX25", "RxPOCSAG", "RxERT",
+           "IQConverter"]

@@ -1,16 +1,19 @@
-"""Carrier recovery and level control: the PLL, the vectorized pilot
-recovery and the AGC (the JAX package's blocks/signal/carrier.py;
-reference: radio/blocks/signal/{pll,agc}.lua).  Squelch, clock recovery
-and the phase corrector are later slices of the port."""
+"""Carrier and clock recovery and level control: the PLL, the vectorized
+pilot recovery, the AGC, the zero-crossing clock recovery and the binary
+phase corrector (the JAX package's blocks/signal/carrier.py; reference:
+radio/blocks/signal/{pll,agc,zerocrossingclockrecovery,
+binaryphasecorrector}.lua).  The power squelch is a later slice of the
+port."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from luaradio_tpu_torch.blocks.signal.digital import hysteresis
 from luaradio_tpu_torch.core.block import Input, Output, SignalBlock
 from luaradio_tpu_torch.ops import fir as fir_ops
-from luaradio_tpu_torch.ops.scan import linrec_first_order
+from luaradio_tpu_torch.ops.scan import cummax_blocked, linrec_first_order
 from luaradio_tpu_torch.types import ComplexFloat32, Float32
 from luaradio_tpu_torch.utils import filter_design
 
@@ -183,5 +186,105 @@ class AGCBlock(SignalBlock):
         return (p[..., -1], g[..., -1]), y
 
 
+class ZeroCrossingClockRecoveryBlock(SignalBlock):
+    """Emit a +1/-1 clock aligned to half a symbol period after each input
+    zero crossing (reference: zerocrossingclockrecovery.lua).
+
+    The reference counts an NCO down per sample; here the pulse positions
+    are solved in closed form: with d the distance since the most recent
+    crossing (a cummax) the cumulative pulse count is ceil((d + 1 - P/2) /
+    P), and a pulse fires wherever that count increments.  All in float32
+    as the JAX package computes it, the sample indices included (exact to
+    2^24 samples a chunk), with a true division by the period P."""
+
+    def __init__(self, baudrate: float, threshold: float = 0.0):
+        super().__init__()
+        self.baudrate = baudrate
+        self.threshold = threshold
+        self.add_type_signature([Input("in", Float32)], [Output("out", Float32)])
+
+    def initialize(self):
+        self._period = np.float32(self.get_rate() / self.baudrate)
+
+    def init_state(self):
+        # (hysteresis state -1/+1, offset value entering the chunk)
+        return tuple(torch.tensor(float(v), dtype=torch.float32,
+                                  device=self.device)
+                     for v in (-1.0, self._period))
+
+    def _pulse_count(self, decs, base):
+        """Pulses after ``decs`` decrements starting from offset ``base``."""
+        return torch.clamp(torch.ceil((decs + 1.0 - base)
+                                      / float(self._period)), min=0.0)
+
+    def process(self, state, x):
+        h0, off0 = state
+        p = float(self._period)
+        n = x.shape[-1]
+        hold, s, s_prev = hysteresis(x, float(np.float32(self.threshold)),
+                                     h0)
+        cross = (s != s_prev) & ~hold
+
+        # most recent crossing index (or -1)
+        idx = torch.arange(n, dtype=torch.float32, device=x.device)
+        c = cummax_blocked(torch.where(cross, idx, -1.0))
+        has = c >= 0.0
+
+        k = idx - c + 1.0                       # decrements since crossing
+        m_cross = self._pulse_count(k, float(self._period / 2))
+        m_free = self._pulse_count(idx + 1.0, off0[..., None])
+        m = torch.where(has, m_cross, m_free)
+        m_prev = torch.cat([torch.zeros_like(m[..., :1]), m[..., :-1]], -1)
+        m_prev = torch.where(cross, 0.0, m_prev)
+        y = torch.where(m > m_prev, 1.0, -1.0).to(torch.float32)
+
+        off_end = torch.where(
+            has[..., -1],
+            float(self._period / 2) - k[..., -1] + m[..., -1] * p,
+            off0 - float(n) + m[..., -1] * p)
+        return (s[..., -1], off_end), y
+
+
+class BinaryPhaseCorrectorBlock(SignalBlock):
+    """Rotate out the moving-average BPSK phase offset, estimated from every
+    sample_interval-th sample with angles folded into [-pi/2, pi/2]
+    (reference: binaryphasecorrector.lua).  The state is the last
+    ``num_samples`` folded phases."""
+
+    def __init__(self, num_samples: int, sample_interval: int = 32):
+        super().__init__()
+        self.num_samples = int(num_samples)
+        self.sample_interval = int(sample_interval)
+        self.add_type_signature([Input("in", ComplexFloat32)],
+                                [Output("out", ComplexFloat32)])
+
+    def chunk_multiple(self):
+        return self.sample_interval
+
+    def init_state(self):
+        return torch.zeros((self.num_samples,), dtype=torch.float32,
+                           device=self.device)
+
+    def process(self, state, x):
+        interval, num = self.sample_interval, self.num_samples
+        n = x.shape[-1]
+        phi = torch.angle(x[..., ::interval])
+        half_pi, pi = float(np.float32(np.pi / 2)), float(np.float32(np.pi))
+        phi = torch.where(phi < -half_pi, phi + pi, phi)
+        phi = torch.where(phi > half_pi, phi - pi, phi)
+        seq = torch.cat([state.expand(phi.shape[:-1] + state.shape[-1:]),
+                         phi], dim=-1)
+        # ma[j] = mean(seq[j+1 .. j+num]): the window of ``num`` phases
+        # ending at (and including) sample point j
+        k = phi.shape[-1]
+        csum = torch.cumsum(seq, dim=-1)
+        prev = torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)
+        ma_pts = (csum[..., num:num + k] - prev[..., 1:k + 1]) / float(num)
+        ma = torch.repeat_interleave(ma_pts, interval, dim=-1)[..., :n]
+        y = x * torch.polar(torch.ones_like(ma), -ma)
+        return seq[..., -num:], y.to(torch.complex64)
+
+
 __all__ = ["PLLBlock", "PilotRecoveryBlock", "AGCBlock",
+           "ZeroCrossingClockRecoveryBlock", "BinaryPhaseCorrectorBlock",
            "pilot_normalize_multiply"]

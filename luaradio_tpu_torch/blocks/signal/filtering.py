@@ -226,6 +226,54 @@ class ComplexBandpassFilterBlock(_BandFIRBlock):
     _complex = True
 
 
+class RootRaisedCosineFilterBlock(_DesignedFIRBlock):
+    """Root-raised-cosine matched filter (reference:
+    rootraisedcosinefilter.lua)."""
+
+    def __init__(self, num_taps: int, beta: float, symbol_rate: float):
+        super().__init__(num_taps)
+        self.beta = beta
+        self.symbol_rate = symbol_rate
+
+    def design_taps(self):
+        return filter_design.fir_root_raised_cosine(
+            self.num_taps, self.get_rate(), self.beta, 1.0 / self.symbol_rate)
+
+
+def _symbol_period(block) -> int:
+    return max(1, int(block.get_rate() / block.baudrate))
+
+
+class PulseMatchedFilterBlock(_DesignedFIRBlock):
+    """Matched filter for a rectangular one-symbol pulse: symbol_period taps
+    of +1 (-1 when inverted), exactly the reference's tap vector
+    (pulsematchedfilter.lua)."""
+
+    def __init__(self, baudrate: float, invert: bool = False):
+        super().__init__(1)
+        self.baudrate = baudrate
+        self.invert = invert
+
+    def design_taps(self):
+        return np.full(_symbol_period(self), -1.0 if self.invert else 1.0)
+
+
+class ManchesterMatchedFilterBlock(_DesignedFIRBlock):
+    """Matched filter for a Manchester transition: symbol_period taps of -1
+    followed by symbol_period taps of +1 (swapped when inverted), exactly
+    the reference's tap vector (manchestermatchedfilter.lua:11-23)."""
+
+    def __init__(self, baudrate: float, invert: bool = False):
+        super().__init__(2)
+        self.baudrate = baudrate
+        self.invert = invert
+
+    def design_taps(self):
+        sp = _symbol_period(self)
+        first = 1.0 if self.invert else -1.0
+        return np.concatenate([np.full(sp, first), np.full(sp, -first)])
+
+
 def _singlepole_lowpass_coeffs(cutoff: float, rate: float):
     """Bilinear-transform 1-pole lowpass H(s) = 1/(1 + s/wc) with
     prewarping (reference: singlepolelowpassfilter.lua)."""
@@ -377,4 +425,6 @@ __all__ = [
     "ComplexBandstopFilterBlock", "SinglepoleLowpassFilterBlock",
     "SinglepoleHighpassFilterBlock", "FMDeemphasisFilterBlock",
     "FMPreemphasisFilterBlock", "HilbertTransformBlock",
+    "RootRaisedCosineFilterBlock", "PulseMatchedFilterBlock",
+    "ManchesterMatchedFilterBlock",
 ]

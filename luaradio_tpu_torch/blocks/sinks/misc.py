@@ -1,6 +1,7 @@
-"""Nop and Benchmark sinks (reference: radio/blocks/sinks/{nop,benchmark}.lua).
-Both have ``wants_data=False``: the runtime hands them the device tensor
-and never copies it to the host, so a graph ending in them stays on the
+"""Print, JSON, Nop and Benchmark sinks (reference:
+radio/blocks/sinks/{print,json,nop,benchmark}.lua).  Nop and Benchmark
+have ``wants_data=False``: the runtime hands them the device tensor and
+never copies it to the host, so a graph ending in them stays on the
 card."""
 
 from __future__ import annotations
@@ -8,6 +9,8 @@ from __future__ import annotations
 import json as _json
 import sys
 import time
+
+import numpy as np
 
 from luaradio_tpu_torch.core.block import Input, SinkBlock
 
@@ -23,6 +26,69 @@ class NopSink(SinkBlock):
 
     def process(self, x):
         return None
+
+
+class PrintSink(SinkBlock):
+    """Print samples line-by-line (reference: print.lua)."""
+
+    def __init__(self, file=None):
+        super().__init__()
+        self.file = file or sys.stdout
+        self.add_type_signature([Input("in", lambda t: True)], [])
+
+    def process(self, x):
+        if isinstance(x, (list, tuple)):
+            for v in x:
+                print(v, file=self.file)
+        else:
+            for v in np.asarray(x).reshape(-1):
+                print(v, file=self.file)
+
+
+class JSONSink(SinkBlock):
+    """Serialize any sample with a JSON representation, newline-delimited
+    (reference: json.lua — predicate type signature accepting any type with
+    to_json)."""
+
+    def __init__(self, file=None):
+        super().__init__()
+        self._file_arg = file
+        self.file = None
+        self._owns = False
+        self.add_type_signature([Input("in", lambda t: True)], [])
+
+    def initialize(self):
+        if self.file is None:
+            if isinstance(self._file_arg, str):
+                self.file = open(self._file_arg, "w")
+                self._owns = True
+            else:
+                self.file = self._file_arg or sys.stdout
+
+    @staticmethod
+    def _dump(v) -> str:
+        if hasattr(v, "to_json"):
+            return v.to_json()
+        import dataclasses
+        if dataclasses.is_dataclass(v):
+            return _json.dumps(dataclasses.asdict(v))
+        if isinstance(v, np.generic):
+            v = v.item()
+        if isinstance(v, complex):
+            return _json.dumps({"real": v.real, "imag": v.imag})
+        return _json.dumps(v)
+
+    def process(self, x):
+        vals = x if isinstance(x, (list, tuple)) else np.asarray(x).reshape(-1)
+        for v in vals:
+            self.file.write(self._dump(v) + "\n")
+
+    def cleanup(self):
+        if self.file is not None:
+            self.file.flush()
+            if self._owns:
+                self.file.close()
+                self.file = None
 
 
 class BenchmarkSink(SinkBlock):
@@ -82,4 +148,4 @@ class BenchmarkSink(SinkBlock):
                 out.flush()
 
 
-__all__ = ["NopSink", "BenchmarkSink"]
+__all__ = ["NopSink", "PrintSink", "JSONSink", "BenchmarkSink"]

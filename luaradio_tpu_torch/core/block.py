@@ -96,6 +96,10 @@ class Block:
     domain = "host"
     #: host block whose output length is data-dependent (framers, decoders).
     variable_output = False
+    #: device block whose one output is a (values, mask) pair of equal
+    #: shapes (the Sampler): the runtime copies both to the host and keeps
+    #: values[mask] there, so its consumers see a data-dependent length.
+    masked_output = False
     #: device block that can be demoted to host mode (process_host) when fed
     #: by a variable-rate host stage.
     dual = False

@@ -305,22 +305,23 @@ class Graph:
 
     # -- dual-block demotion -------------------------------------------------
     # Device blocks cannot consume variable-rate streams (static shapes).
-    # Blocks downstream of a variable-output host block are demoted to host
-    # mode if they declare dual=True (e.g. Slicer, DifferentialDecoder in
-    # framer chains), else it's a graph error.
+    # Blocks downstream of a variable-output host block or a masked device
+    # block are demoted to host mode if they declare dual=True (e.g.
+    # Slicer, DifferentialDecoder in framer chains), else it's a graph
+    # error.
     def _demote_duals(self):
         tainted: set[int] = set()
         for b in self.order:
             pred_tainted = any(id(p) in tainted for p in self.preds(b))
             if b.domain == "device" and pred_tainted:
-                if getattr(b, "dual", False):
+                if b.dual:
                     b.domain = "host"
                     b.process = b.process_host
                 else:
                     raise ValueError(
                         f"{b.name}: device block cannot consume a "
                         f"variable-rate stream (not dual-capable)")
-            if (getattr(b, "variable_output", False)
+            if (b.masked_output or b.variable_output
                     or (b.domain == "host" and pred_tainted)):
                 tainted.add(id(b))
 

@@ -39,7 +39,8 @@ def _fir_equiv(block: Block):
 
 def _is_chain_candidate(graph, b: Block) -> bool:
     return (isinstance(b, SignalBlock) and b.domain == "device"
-            and len(b.inputs) == 1 and len(b.outputs) == 1)
+            and len(b.inputs) == 1 and len(b.outputs) == 1
+            and not b.masked_output)
 
 
 def _decim_factor(b: Block) -> int | None:

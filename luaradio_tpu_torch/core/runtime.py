@@ -31,9 +31,21 @@ from luaradio_tpu_torch.core.composite import CompositeBlock, Graph, PortRef
 from luaradio_tpu_torch.ops.complexutil import to_device
 
 
-def _to_host(value, n_valid=None):
+def _to_host(value, n_valid=None, masked=False):
     """Host numpy view of an edge value (already copied off the card by
-    the pump), trimmed to its valid samples.  Time is the LAST axis."""
+    the pump), trimmed to its valid samples.  Time is the LAST axis.
+
+    A masked edge is a (values, mask) pair: it yields values[mask], with
+    the mask cut at ``n_valid`` first so that the padding of the last
+    chunk never emits a sample.  Compacting here, after the copy, costs
+    the card nothing: on the card the output's size would be one more
+    device-to-host sync a chunk."""
+    if masked:
+        values, mask = (v.numpy() for v in value)
+        if n_valid is not None and n_valid < mask.shape[-1]:
+            mask = mask.copy()
+            mask[..., max(0, n_valid):] = False
+        return values[mask]
     if isinstance(value, (list, tuple)):
         return value
     arr = value.numpy() if isinstance(value, torch.Tensor) \
@@ -109,8 +121,9 @@ class Segment:
                                    for i in range(len(b.inputs)))]
                 st, outs = b.process(self.states[k], *ins)
             self.states[k] = st
-            if len(b.outputs) == 1 and not isinstance(outs, (tuple, list)):
-                outs = (outs,)
+            if b.masked_output or (len(b.outputs) == 1
+                                   and not isinstance(outs, (tuple, list))):
+                outs = (outs,)          # a (values, mask) pair is one port
             for oi, y in enumerate(outs):
                 vals[f"{k}.{oi}"] = y
         return {ok: vals[ok] for ok in self.out_keys}
@@ -380,7 +393,10 @@ class Runner:
         # start the copies host blocks need now; they complete while the
         # card works on the next chunk (synchronized in _run_hosts)
         for k in seg.host_out_keys:
-            outs[k] = outs[k].to("cpu", non_blocking=True)
+            v = outs[k]
+            outs[k] = (tuple(t.to("cpu", non_blocking=True) for t in v)
+                       if isinstance(v, tuple)     # masked: values, mask
+                       else v.to("cpu", non_blocking=True))
         if seg.host_out_keys and self.device.type == "cuda":
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))
@@ -410,7 +426,8 @@ class Runner:
                 if not _wants_host(b):
                     ins.append(values[sk])
                     continue
-                ins.append(_to_host(values[sk], nvalid.get(sk)))
+                ins.append(_to_host(values[sk], nvalid.get(sk),
+                                    src.block.masked_output))
             outs = b.process(*ins)
             if outs is not None:
                 if not isinstance(outs, tuple):

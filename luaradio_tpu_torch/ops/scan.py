@@ -140,4 +140,11 @@ def linrec_first_order(u: torch.Tensor, a, y0: torch.Tensor) -> torch.Tensor:
     return y.reshape(lead + (n,))
 
 
-__all__ = ["linrec_first_order"]
+def cummax_blocked(x: torch.Tensor) -> torch.Tensor:
+    """Cumulative max along the last axis (the JAX package's
+    cummax_blocked; its two-level blocking works around XLA's log-depth
+    cummax on the TPU, which torch.cummax does not need)."""
+    return torch.cummax(x, dim=-1).values
+
+
+__all__ = ["linrec_first_order", "cummax_blocked"]

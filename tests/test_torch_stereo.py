@@ -417,16 +417,17 @@ def test_parse_spec_and_unknown_names():
     with pytest.raises(ValueError, match="unsupported input 'rtlsdr'"):
         port_main(["-a", "rx_wbfm", "-i", "rtlsdr", "-o", "wavfile:y",
                    "100e6"], device="cpu")
-    with pytest.raises(ValueError, match="unsupported output 'print'"):
+    with pytest.raises(ValueError, match="unsupported output 'pulseaudio'"):
         port_main(["-a", "rx_wbfm", "-i", "iqfile:x,rate=1e6", "-o",
-                   "print", "100e6"], device="cpu")
+                   "pulseaudio", "100e6"], device="cpu")
     with pytest.raises(SystemExit):
         port_main(["-a", "rx_wbfm"])              # missing -i/-o
     assert sorted(applications.APPLICATIONS) == [
-        "iq_converter", "rx_am", "rx_nbfm", "rx_raw", "rx_ssb", "rx_wbfm"]
+        "iq_converter", "rx_am", "rx_ax25", "rx_ert", "rx_nbfm",
+        "rx_pocsag", "rx_raw", "rx_rds", "rx_ssb", "rx_wbfm"]
     assert sorted(applications.INPUTS) == ["iqfile"]
-    assert sorted(applications.OUTPUTS) == ["benchmark", "iqfile",
-                                            "wavfile"]
+    assert sorted(applications.OUTPUTS) == ["benchmark", "iqfile", "json",
+                                            "print", "wavfile"]
 
 
 def test_cli_version_and_platform(capsys):
