@@ -84,16 +84,47 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     S/s and rx_ert --protocols=scm at 2 359 296 S/s through the CLI, each
     message equal to the one sent, and BPSK31Receiver as a graph at
     8000 S/s, whose text must come out;
-14. the kernels line and the final status line.
+14. bank-mono: the channelizer bank at full width, a 2 s capture at
+    16 384 000 S/s (8 WBFM stations with their own tones on channel bins
+    over both halves of the span, ~30 dB SNR in a channel) -> ChannelizerBlock
+    (64, 8) -> WBFMMonoDemodulator -> Downsampler(8) in chunks of 64 x
+    16 384 (examples/wideband_channelizer_bank.py at 64 channels): each
+    tone within 50 Hz on its row, its tone bin > 100x the quiet rows'
+    median there; again under the K2 rule, where K2 must launch once a
+    chunk on all 64 rows, match its twin on the path's first chunk and
+    give the default run's audio within 2e-5 * scale;
+15. bank-stereo: 64 IQ files at 256 000 S/s, 2 s each (0.25 s of noise;
+    8 rows then carry the stereo multiplex with L and R tones of their
+    own) through BankSource -> WBFMStereoDemodulator (PLL pilot) with
+    run(channels=64): K3 must launch with more than one row a launch and
+    at most once a chunk, every row of every launch must equal its
+    one-row launch bit for bit and the twin holds 4 rows of the first;
+    each station's L+R carries its tones at SNR > 1e4; three station rows
+    and two noise rows equal the single-stream graph on their files;
+    then the same graph at the chunk where the overlap tier plans, the
+    scan's banked launches held the same way;
+16. K3 and the scan timed batched on 1, 8, 64, 132 and 264 rows at those
+    chunks (device time), beside one row and their chain floors;
+17. bank-classes: WBFMMonoBank, WBFMStereoBank and RDSBank at 64 channels
+    over 4 chunks of 2^17 samples, each row within 2e-4 * scale of the
+    port's block chain run banked on the same rows, each timed;
+18. bank-host: a BankSource of 8 POCSAG captures at 1 102 500 S/s (4
+    carry their own message) through Tuner -> POCSAGReceiver with
+    run(channels=8): each row decodes what it carries, the noise rows
+    nothing;
+19. the kernels line and the final status line.
 
 Launch counts are zeroed just before the flagship, the K2 graph run, the
-stereo CLI run, the overlap path run, the rx_am --synchronous run and the
-rx_rds run and read just after: each kernel must have run on its path.  Any failure
+stereo CLI run, the overlap path run, the rx_am --synchronous run, the
+rx_rds run, the bank-mono K2 run and the two bank-stereo runs and read
+just after: each kernel must have run on its path.  Any failure
 raises (non-zero exit); a hang ends the run with a traceback after 480 s.
 ``--profile PATH`` also writes a torch.profiler table of one mono graph
 run to PATH, of the stereo run to PATH.stereo.txt, of the rx_am
 --synchronous run to PATH.am.txt, of 50 chunks of each bench graph to
-PATH.bench_<row>.txt and of the rx_rds run to PATH.rds.txt.
+PATH.bench_<row>.txt, of the rx_rds run to PATH.rds.txt and of the
+bank-mono and bank-stereo runs to PATH.bank_mono.txt and
+PATH.bank_stereo.txt.
 """
 
 from __future__ import annotations
@@ -111,12 +142,17 @@ import wave
 import numpy as np
 import torch
 
-from luaradio_tpu_torch import (VARICODE, BenchmarkSink, BPSK31Receiver,
-                                ComplexFloat32, CompositeBlock,
-                                DownsamplerBlock, Input, IQFileSource,
-                                SinkBlock, TunerBlock, UniformRandomSource,
-                                WAVFileSink, WBFMMonoDemodulator,
-                                WBFMStereoDemodulator)
+from luaradio_tpu_torch import (VARICODE, BankSource, BenchmarkSink,
+                                BPSK31Receiver, ChannelizerBlock,
+                                ComplexFloat32, CompositeBlock, DelayBlock,
+                                DownsamplerBlock, FrequencyDiscriminatorBlock,
+                                HilbertTransformBlock, HostSourceBlock, Input,
+                                IQFileSource, LowpassFilterBlock,
+                                MultiplyConjugateBlock, Output,
+                                PilotRecoveryBlock, POCSAGReceiver,
+                                RootRaisedCosineFilterBlock, SinkBlock,
+                                TunerBlock, UniformRandomSource, WAVFileSink,
+                                WBFMMonoDemodulator, WBFMStereoDemodulator)
 from luaradio_tpu_torch import cli
 from luaradio_tpu_torch.blocks.protocol import ax25 as ax25_proto
 from luaradio_tpu_torch.blocks.protocol import ert as ert_proto
@@ -131,6 +167,8 @@ from luaradio_tpu_torch.ops.fir import _conv_real
 from luaradio_tpu_torch.parallel.flagship import (INV_GAIN,
                                                   make_wbfm_mono_step,
                                                   wbfm_mono_taps)
+from luaradio_tpu_torch.parallel.rds import RDSBank
+from luaradio_tpu_torch.parallel.wbfm import WBFMMonoBank, WBFMStereoBank
 from luaradio_tpu_torch.types import number_to_bits
 from luaradio_tpu_torch.utils import format as format_utils
 
@@ -170,6 +208,21 @@ BENCH_CHUNK, BENCH_FILE, BENCH_S = 1 << 22, 4 << 20, 3.0
 #: the digital phase: the RDS capture's seconds, the RDS bit rate, and
 #: the ERT capture's rate (36 x 65 536: whole samples a chip)
 DIGITAL_S, RDS_BAUD, ERT_RATE = 8, 1187.5, 2359296
+#: the bank phases: the wideband capture's rate and seconds, the bank's
+#: channels (BASELINE.json's fifth configuration) and the channel bins
+#: of its stations, over both halves of the span
+BANK_RATE, BANK_S, BANK_C = 16384000, 2, 64
+BANK_STATIONS = (3, 11, 19, 27, 36, 44, 52, 60)
+#: the stereo bank: rate, seconds, the noise before the stations, the
+#: chunk (and so the PLL's chunk), the station rows; the rows K3 and the
+#: scan are timed on; the bank classes' chunk and chunks
+ST_RATE, ST_S, ST_NOISE, ST_CHUNK = 256000, 2, 0.25, 64000
+#: the stereo bank's chunk where the overlap tier plans (8 segments of
+#: 8192): its banked path
+ST_SCAN_CHUNK = 65536
+ST_STATIONS = (2, 9, 17, 25, 33, 41, 49, 57)
+BATCH_ROWS = (1, 8, 64, 132, 264)
+CLASS_CHUNK, CLASS_CHUNKS = 1 << 17, 4
 
 
 def log(phase: str, msg: str):
@@ -1083,10 +1136,11 @@ def phase_overlap_hold(dev, gen, chunk):
     k3_ms = median_ms(lambda: pll.pll_phase(x, kstate, *params, 2.0), reps=5)
     s = n // lseg
     steps = warm + lseg
-    init = pll_overlap._initial_states(x, state, s, lseg, warm)
+    xb = x[None]                             # the scan's [rows, N] form
+    init = pll_overlap._initial_states(xb, state, s, lseg, warm)
     consts = tuple(float(np.float32(v)) for v in (*params, 2))
     scan_ms = median_ms(lambda: pll_overlap._scan_kernel(
-        x, init, consts, lseg, warm), reps=5)
+        xb, init, consts, lseg, warm), reps=5)
     nbytes = n * 8 + 5 * s * 4 + 3 * n * 4 + 10 * s * 4
     ops = steps * s * OVERLAP_OPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
@@ -1390,7 +1444,9 @@ def phase_analog(tmp, dev):
 
 
 class _Collect(SinkBlock):
-    """A sink that keeps what it is given, on the host."""
+    """A sink that keeps what it is given, on the host: arrays, or (a
+    bank's host tail calls it once per channel, in channel order) a
+    channel's list of objects."""
 
     def __init__(self):
         super().__init__()
@@ -1398,7 +1454,7 @@ class _Collect(SinkBlock):
         self.add_type_signature([Input("in", lambda t: True)], [])
 
     def process(self, x):
-        self.got.append(np.array(x))
+        self.got.append(list(x) if isinstance(x, list) else np.array(x))
 
 
 def bench_graph(source, sink):
@@ -1814,6 +1870,714 @@ def phase_digital_others(tmp, dev):
     return sps
 
 
+# -- the bank phases ------------------------------------------------------
+
+
+class _ArraySource(HostSourceBlock):
+    """Complex samples from a host array, ``n`` at a time."""
+
+    def __init__(self, data, rate):
+        super().__init__()
+        self.data, self.rate, self.pos = data, rate, 0
+        self.add_type_signature([], [Output("out", ComplexFloat32)])
+
+    def read(self, n):
+        if self.pos >= len(self.data):
+            return None
+        chunk = self.data[self.pos:self.pos + n]
+        self.pos += len(chunk)
+        return chunk
+
+
+def _rows(sink):
+    return np.concatenate(sink.got, axis=-1)
+
+
+def _record(module, name, calls):
+    """Put a wrapper in place of ``module.name``, a kernel's private
+    launch function (every call launches; the wrappers that count
+    launches call it through the module), which appends (inputs,
+    outputs) of every call, cloned; returns a function that puts the
+    original back."""
+    fn = getattr(module, name)
+
+    def recording(*args):
+        ins = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+        out = fn(*args)
+        calls.append((ins, _clone(out)))
+        return out
+    setattr(module, name, recording)
+
+    def restore():
+        setattr(module, name, fn)
+    return restore
+
+
+def _clone(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    return tuple(_clone(v) for v in out)
+
+
+def write_wideband_capture(tmp, dev):
+    """BANK_S s at BANK_RATE, f32le, made on the card in float64: WBFM
+    stations (75 kHz deviation, each its own tone between 500 Hz and
+    4 kHz) on the channel bins BANK_STATIONS, over both halves of the
+    span, and complex Gaussian noise ~30 dB under a station within its
+    channel.  Returns (path, samples, {bin: tone})."""
+    n = int(BANK_S * BANK_RATE)
+    gen = torch.Generator(device=dev).manual_seed(64)
+    t = torch.arange(n, device=dev, dtype=torch.float64) / BANK_RATE
+    z = torch.randn(n, generator=gen, device=dev, dtype=torch.complex128) \
+        * np.sqrt(1e-3 * BANK_C)
+    tones = {}
+    for k, b in enumerate(BANK_STATIONS):
+        tones[b] = 500.0 + 500.0 * k
+        fc = (b if b < BANK_C // 2 else b - BANK_C) * BANK_RATE / BANK_C
+        # a tone-modulated FM phase in closed form: 2 pi fc t + (75 kHz /
+        # tone) sin(2 pi tone t)
+        ph = 2 * np.pi * fc * t + 75e3 / tones[b] * torch.sin(
+            2 * np.pi * tones[b] * t)
+        z += torch.polar(torch.ones_like(ph), ph)
+        del ph
+    del t
+    path = os.path.join(tmp, "wideband.f32.iq")
+    z.to(torch.complex64).cpu().numpy().view(np.float32).tofile(path)
+    del z
+    torch.cuda.empty_cache()
+    return path, n, tones
+
+
+def bank_mono_graph(path):
+    """examples/wideband_channelizer_bank.py at BANK_C channels: IQ file
+    -> ChannelizerBlock(64, 8) -> WBFMMonoDemodulator -> Downsampler(8)
+    -> a sink of the [64, T] audio."""
+    top, sink = CompositeBlock(), _Collect()
+    top.connect(IQFileSource(path, "f32le", BANK_RATE),
+                ChannelizerBlock(BANK_C, taps_per_branch=8),
+                WBFMMonoDemodulator(), DownsamplerBlock(8), sink)
+    return top, sink
+
+
+def run_bank_mono(path, dev):
+    top, sink = bank_mono_graph(path)
+    t0 = time.monotonic()
+    Runner(top, chunk_size=BANK_C * 16384, device=dev).run()
+    return _rows(sink), time.monotonic() - t0
+
+
+def tone_bin_power(a, rate, tone):
+    """Power of the largest bin within 50 Hz of ``tone`` over the second
+    half of each row of ``a`` [R, T] (Hann window), and that bin's
+    frequency."""
+    a = a[..., a.shape[-1] // 2:].astype(np.float64)
+    spec = np.abs(np.fft.rfft(a * np.hanning(a.shape[-1]), axis=-1)) ** 2
+    f = np.arange(spec.shape[-1]) * rate / a.shape[-1]
+    win = np.nonzero(np.abs(f - tone) <= 50)[0]
+    k = win[np.argmax(spec[..., win], axis=-1)]
+    return np.take_along_axis(spec, np.atleast_1d(k)[..., None], -1)[..., 0], \
+        f[k]
+
+
+def phase_bank_mono(tmp, dev, profile=None):
+    """The channelizer bank at full width: a BANK_S s capture at
+    BANK_RATE through bank_mono_graph, chunks of 64 x 16 384.  Each
+    station's tone within 50 Hz on its row, and its tone bin over 100x
+    the median of the quiet rows' power in that bin (a quiet row's
+    discriminator runs on noise alone, so its audio is loud and broad:
+    the whole-band power does not separate the rows).  Then under the
+    K2 rule, where K2 must launch once a chunk on all 64 rows, is held
+    against its twin on the first chunk the path gave it and the audio
+    must match the default run's within 2e-5 * scale.  Returns the K2
+    record of the path."""
+    path, n, tones = write_wideband_capture(tmp, dev)
+    log("bank-mono", f"capture: {n} samples ({BANK_S} s) at {BANK_RATE} "
+                     f"S/s, f32le, {os.path.getsize(path) / 1e6:.0f} MB; "
+                     f"stations on bins {sorted(tones)}")
+    top, _ = bank_mono_graph(path)
+    Runner(top, chunk_size=BANK_C * 16384, device=dev).run(max_chunks=2)
+    audio, dt = run_bank_mono(path, dev)
+    rate = BANK_RATE / BANK_C / 8
+    quiet = [c for c in range(BANK_C) if c not in tones]
+    if audio.shape != (BANK_C, n // BANK_C // 8) \
+            or not np.isfinite(audio).all():
+        raise AssertionError(f"bank-mono: audio {audio.shape}")
+    least, off = np.inf, 0.0
+    for b, tone in tones.items():
+        p, f = tone_bin_power(audio[[b] + quiet], rate, tone)
+        ratio = p[0] / np.median(p[1:])
+        if abs(f[0] - tone) > 50 or ratio <= 100:
+            raise AssertionError(f"bank-mono: bin {b}: {tone} Hz found at "
+                                 f"{f[0]:.1f} Hz, tone bin {ratio:.3g}x the "
+                                 f"quiet rows' median (limit 100)")
+        least, off = min(least, ratio), max(off, abs(f[0] - tone))
+    power = (audio[:, audio.shape[1] // 2:].astype(np.float64) ** 2).mean(-1)
+    band = power[list(tones)] / np.median(power[quiet])
+    log("bank-mono", f"{len(tones)} stations: each tone within {off:.1f} Hz "
+                     f"(limit 50), tone bin >= {least:.3g}x the quiet rows' "
+                     f"median (limit 100); whole-band audio power of the "
+                     f"station rows over the quiet rows' median "
+                     f"{band.min():.3g}-{band.max():.3g}x (not held); "
+                     f"{n / dt / 1e6:.2f} M complex samples/s end to end")
+    calls = []
+    os.environ["LUARADIO_TPU_FORCE_WBFM_KERNEL"] = "1"
+    top, _ = bank_mono_graph(path)
+    Runner(top, chunk_size=BANK_C * 16384, device=dev).run(max_chunks=2)
+    restore = _record(wbfm, "_launch_k2", calls)
+    try:
+        wbfm.disc_fir.launches = 0
+        k2_audio, k2_dt = run_bank_mono(path, dev)
+        launches = wbfm.disc_fir.launches
+    finally:
+        restore()
+        del os.environ["LUARADIO_TPU_FORCE_WBFM_KERNEL"]
+    chunks = -(-n // (BANK_C * 16384))
+    shapes = {tuple(c[0][1].shape) for c in calls}
+    if launches != chunks or shapes != {(BANK_C, 16384)}:
+        raise AssertionError(f"bank-mono K2: {launches} launches over "
+                             f"{chunks} chunks, shapes {shapes}")
+    (carry, x, taps, d, inv_gain, _), _ = calls[0]
+    err = compare("disc_fir", lambda c, xx, h: wbfm.disc_fir(
+        c, xx, h, d, inv_gain), lambda c, xx, h: wbfm.disc_fir_reference(
+        c, xx, h, d, inv_gain), [("bank-mono chunk 0", x, carry)], taps)
+    timed = measure("disc_fir", lambda c, xx, h: wbfm.disc_fir(
+        c, xx, h, d, inv_gain), lambda c, xx, h: wbfm.disc_fir_reference(
+        c, xx, h, d, inv_gain), x, carry, taps, d)
+    k2_dev_ms = graph_ms(lambda: wbfm.disc_fir(carry, x, taps, d, inv_gain))
+    log("disc_fir", f"bank chunk: {k2_dev_ms:.4f} ms device time "
+                    f"(CUDA-graph replay); "
+                    f"{wbfm.plan(BANK_C, 16384, taps.shape[0], d)}")
+    scale = max(1.0, float(np.abs(audio).max()))
+    diff = float(np.abs(k2_audio - audio).max())
+    if k2_audio.shape != audio.shape or diff > 2e-5 * scale:
+        raise AssertionError(f"bank-mono K2: audio off the default run by "
+                             f"{diff} (limit 2e-5 * {scale:.3g})")
+    log("bank-mono", f"K2 rule: {launches} K2 launches over {chunks} "
+                     f"chunks, each on [{BANK_C} x 16384]; audio within "
+                     f"{diff:.3g} of the default run's (limit 2e-5 * "
+                     f"{scale:.3g}); {n / k2_dt / 1e6:.2f} M complex "
+                     f"samples/s end to end")
+    if profile:
+        profile_run(lambda: run_bank_mono(path, dev),
+                    f"{profile}.bank_mono.txt", "bank-mono")
+    return {"launches": launches, "chunks": chunks, "max_abs_err": err,
+            **timed, "graph_ms": k2_dev_ms, "sps": n / dt,
+            "k2_sps": n / k2_dt}
+
+
+def write_stereo_bank(tmp, dev):
+    """BANK_C IQ files at ST_RATE, ST_S s each, made on the card: ST_NOISE
+    s of noise, then on the rows ST_STATIONS the stereo multiplex of
+    write_stereo_capture (L and R tones of their own) at ~30 dB SNR; the
+    other rows stay noise.  Returns (paths, samples, {row: (L, R)})."""
+    n, n0 = int(ST_S * ST_RATE), int(ST_NOISE * ST_RATE)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    t = torch.arange(n - n0, device=dev, dtype=torch.float64) / ST_RATE
+    tones, paths = {}, []
+    for c in range(BANK_C):
+        z = torch.randn(n, generator=gen, device=dev,
+                        dtype=torch.complex128) * np.sqrt(1e-3)
+        if c in ST_STATIONS:
+            k = ST_STATIONS.index(c)
+            tl_, tr_ = 600.0 + 200.0 * k, 1700.0 + 300.0 * k
+            tones[c] = (tl_, tr_)
+            left = 0.4 * torch.sin(2 * np.pi * tl_ * t)
+            right = 0.4 * torch.sin(2 * np.pi * tr_ * t)
+            mpx = (left + right) + 0.1 * torch.cos(2 * np.pi * 19e3 * t) \
+                + (left - right) * torch.cos(2 * np.pi * 38e3 * t)
+            ph = 2 * np.pi * 75e3 * torch.cumsum(mpx, 0) / ST_RATE + 0.7 * k
+            z[n0:] += torch.polar(torch.ones_like(ph), ph)
+        paths.append(os.path.join(tmp, f"bank{c:02d}.f32.iq"))
+        z.to(torch.complex64).cpu().numpy().view(np.float32).tofile(
+            paths[-1])
+    return paths, n, tones
+
+
+def stereo_bank_graph(paths):
+    """BankSource of the files -> WBFMStereoDemodulator (PLL pilot) ->
+    sinks on left and right (one file: the single-stream graph)."""
+    top, left, right = CompositeBlock(), _Collect(), _Collect()
+    demod = WBFMStereoDemodulator()
+    srcs = [IQFileSource(p, "f32le", ST_RATE) for p in paths]
+    top.connect(BankSource(srcs) if len(srcs) > 1 else srcs[0], demod)
+    top.connect(demod, "left", left, "in")
+    top.connect(demod, "right", right, "in")
+    pll_block = next(b for b in demod._blocks
+                     if isinstance(b, carrier.PLLBlock))
+    return top, left, right, pll_block
+
+
+def hold_bank_rows(label, calls, rows_of, row_of, twin, twin_rows=4):
+    """Every row of every banked launch in ``calls`` (``rows_of(call)``
+    rows, 0 for a one-stream launch) against a one-row launch of that
+    row, bit for bit (``row_of(call, r)`` gives the launch's row r and
+    the one-row launch's result); ``twin`` on ``twin_rows`` rows of the
+    first launch of more than one row.  Returns (rows held, the twin's
+    largest error, its time on those rows: host clock, one run, ms)."""
+    held, twin_err, twin_ms = 0, 0.0, None
+    for i, call in enumerate(calls):
+        for r in range(rows_of(call)):
+            got, one = row_of(call, r)
+            if not all(torch.equal(u, v) for u, v in zip(got, one)):
+                raise AssertionError(f"{label} launch {i} row {r}: not the "
+                                     f"one-row launch's bits")
+            held += 1
+    first = next((c for c in calls if rows_of(c) > 1), None)
+    if first is not None:
+        t0 = time.monotonic()
+        twin_err = twin(first, min(twin_rows, rows_of(first)))
+        twin_ms = (time.monotonic() - t0) * 1e3
+    return held, twin_err, twin_ms
+
+
+def _k3_rows(call):
+    x = call[0][1]
+    return x.shape[0] if x.dim() == 2 else 0
+
+
+def _k3_row(call, r):
+    """K3's banked launch (pll._launch(lib, x [R, N], state [R, 3], k)):
+    its row r and a one-row launch of that row."""
+    (lib, x, st, k), out = call
+    one = pll._launch(lib, x[r].contiguous(), st[r].contiguous(), k)
+    return tuple(v[r] for v in out), one
+
+
+def _k3_twin(call, rows):
+    (lib, x, st, k), out = call
+    errs = 0.0
+    for r in range(rows):
+        exp = pll._reference_row(x[r].contiguous(), st[r].contiguous(), k)
+        errs = max(errs, *pll_diff("bank twin", tuple(v[r] for v in out),
+                                   exp))
+    if errs > 1e-5:
+        raise AssertionError(f"pll_phase bank: |kernel - twin| {errs} > "
+                             f"1e-5 on the first {rows} rows")
+    return errs
+
+
+def _scan_cols(out, lo, hi):
+    return tuple(v[:, lo:hi] for v in out)
+
+
+def _scan_rows(call):
+    return call[0][0].shape[0]
+
+
+def _scan_row(call, r):
+    """The scan's banked launch (pll_overlap._scan_kernel(x [R, N],
+    init [5, R S], ...)): row r's segment columns and a one-row launch of
+    that row."""
+    (x, init, consts, lseg, warm), out = call
+    s = x.shape[1] // lseg
+    one = pll_overlap._scan_kernel(
+        x[r:r + 1].contiguous(), init[:, r * s:(r + 1) * s].contiguous(),
+        consts, lseg, warm)
+    return _scan_cols(out, r * s, (r + 1) * s), one
+
+
+def _scan_twin(call, rows):
+    """The plain scan (pll_overlap._scan_reference) on ``rows`` rows of
+    one launch, as one batch: on the card each element rounds as in a
+    one-row run, and one pass over the W+L steps costs what one row
+    does."""
+    (x, init, consts, lseg, warm), out = call
+    s = x.shape[1] // lseg
+    exp = pll_overlap._scan_reference(x[:rows].contiguous(),
+                                      init[:, :rows * s].contiguous(),
+                                      consts, lseg, warm)
+    torch.cuda.synchronize()
+    errs = max((u - v).abs().max().item()
+               for u, v in zip(_scan_cols(out, 0, rows * s), exp))
+    if errs > 1e-6:
+        raise AssertionError(f"overlap bank: |kernel - plain scan| {errs} "
+                             f"> 1e-6 on the first {rows} rows")
+    return errs
+
+
+def run_bank_stereo(paths, chunk, dev):
+    """stereo_bank_graph over ``paths`` with run(channels=len(paths)) at
+    ``chunk``, K3's and the scan's counts zeroed just before and read just
+    after, every launch of either recorded (inputs and outputs) and each
+    PLL chunk's tiers by row.  Returns the run's record."""
+    k3, scan = pll.pll_phase, pll_overlap.pll_overlap_discard
+    k3_calls, scan_calls, row_tiers = [], [], []
+    restores = [_record(pll, "_launch", k3_calls),
+                _record(pll_overlap, "_scan_kernel", scan_calls)]
+    process = carrier.PLLBlock.process
+
+    def recording(self, state, x):
+        out = process(self, state, x)
+        row_tiers.append(list(self.row_tiers))
+        return out
+    carrier.PLLBlock.process = recording
+    top, left, right, _ = stereo_bank_graph(paths)
+    try:
+        k3.launches = k3.rows = scan.launches = scan.rows = 0
+        t0 = time.monotonic()
+        Runner(top, chunk_size=chunk, device=dev, channels=len(paths)).run()
+        dt = time.monotonic() - t0
+        counts = (k3.launches, k3.rows, scan.launches, scan.rows)
+    finally:
+        carrier.PLLBlock.process = process
+        for r in restores:
+            r()
+    if len(k3_calls) != counts[0] or len(scan_calls) != counts[2]:
+        raise AssertionError(f"bank-stereo: {counts} launches, "
+                             f"{len(k3_calls)} and {len(scan_calls)} "
+                             f"recorded")
+    return {"k3_calls": k3_calls, "scan_calls": scan_calls,
+            "launches": counts[0], "rows": counts[1],
+            "scan_launches": counts[2], "scan_rows": counts[3],
+            "tiers": ["".join("LOS"[t - 1] for t in col)
+                      for col in zip(*row_tiers)],
+            "chunks": len(row_tiers), "dt": dt,
+            "left": _rows(left), "right": _rows(right)}
+
+
+def hold_stereo_tones(label, run, tones):
+    """L+R of each station row carries both its tones within 50 Hz at SNR
+    > 1e4 over the second half."""
+    for c, pair in tones.items():
+        mono = run["left"][c].astype(np.float64) + run["right"][c]
+        for tone in pair:
+            f, snr = tone_snr(mono, ST_RATE, tone)
+            if abs(f - tone) > 50 or snr <= 1e4:
+                raise AssertionError(f"{label} row {c}: L+R tone {tone} Hz "
+                                     f"at {f:.1f} Hz, SNR {snr:.3g}")
+
+
+def phase_bank_stereo(tmp, dev, profile=None):
+    """K3's banked path: write_stereo_bank through stereo_bank_graph with
+    run(channels=64), chunks of ST_CHUNK, where the overlap tier does not
+    plan.  K3 must launch with more than one row a launch and at most
+    once a chunk; every row of every launch equals its one-row launch bit
+    for bit, and the twin holds 4 rows of the first.  L+R carries both
+    tones of each station row at SNR > 1e4; three station rows and two
+    noise rows equal the single-stream graph on their file (L+R within
+    2e-5 * scale, L-R within 2 LSB of 16 bits).  Then the overlap scan's
+    banked path: the same graph at ST_SCAN_CHUNK, where the scan plans
+    and takes the bandpassed noise (coherent at lag 1) and the
+    acquisition; its launches held as K3's, and K3's where it ran.
+    Returns the paths' record."""
+    paths, n, tones = write_stereo_bank(tmp, dev)
+    log("bank-stereo", f"{BANK_C} files of {n} samples ({ST_S} s) at "
+                       f"{ST_RATE} S/s; noise for the first {ST_NOISE} s, "
+                       f"stations on rows {sorted(tones)}")
+    top, *_ = stereo_bank_graph(paths)
+    Runner(top, chunk_size=ST_CHUNK, device=dev,
+           channels=BANK_C).run(max_chunks=2)                    # warm-up
+    run = run_bank_stereo(paths, ST_CHUNK, dev)
+    l_, r_ = run["left"], run["right"]
+    launches, rows, chunks = run["launches"], run["rows"], run["chunks"]
+    if l_.shape != (BANK_C, n) or not np.isfinite(l_).all() \
+            or launches < 1 or launches > chunks or rows <= launches:
+        raise AssertionError(f"bank-stereo: left {l_.shape}; K3 {launches} "
+                             f"launches of {rows} rows over {chunks} chunks")
+    log("bank-stereo", f"run(channels={BANK_C}) at chunk {ST_CHUNK}: "
+                       f"{BANK_C * n / run['dt'] / 1e6:.2f} M complex "
+                       f"samples/s summed over the channels end to end "
+                       f"({run['dt']:.3f} s); {chunks} PLL chunks; K3 "
+                       f"{launches} launches carrying {rows} rows "
+                       f"({rows / launches:.1f} a launch); overlap scan "
+                       f"{run['scan_launches']} launches")
+    log("bank-stereo", "tiers by row, chunk by chunk (L linear, O overlap, "
+                       "S sequential): " + " ".join(
+                           f"{c}:{t}" for c, t in enumerate(run["tiers"])))
+    held, k3_twin, k3_twin_ms = hold_bank_rows(
+        "pll_phase bank", run["k3_calls"], _k3_rows, _k3_row, _k3_twin)
+    log("bank-stereo", f"K3: {held} rows of {launches} launches each equal "
+                       f"to their one-row launch bit for bit; twin on 4 rows "
+                       f"of the first: max |kernel - twin| {k3_twin:.3g} "
+                       f"(limit 1e-5), {k3_twin_ms:.1f} ms (host clock)")
+    hold_stereo_tones("bank-stereo", run, tones)
+    quiet = [c for c in range(BANK_C) if c not in tones]
+    singles = sorted(tones)[:3] + quiet[:2]
+    worst = [0.0, 0.0]
+    for c in singles:
+        top1, l1, r1, _ = stereo_bank_graph([paths[c]])
+        Runner(top1, chunk_size=ST_CHUNK, device=dev).run()
+        l1, r1 = _rows(l1), _rows(r1)
+        lpr, lmr = l1 + r1, l1 - r1
+        scale = max(1.0, float(np.abs(lpr).max()))
+        d_lpr = float(np.abs(l_[c] + r_[c] - lpr).max())
+        d_lmr = float(np.abs(l_[c] - r_[c] - lmr).max())
+        if d_lpr > 2e-5 * scale or d_lmr > 2 / 32768:
+            raise AssertionError(f"bank-stereo row {c}: L+R off its single "
+                                 f"run by {d_lpr}, L-R by {d_lmr}")
+        worst = [max(worst[0], d_lpr), max(worst[1], d_lmr)]
+    log("bank-stereo", f"L+R of each station row carries its two tones at "
+                       f"SNR > 1e4; rows {singles} against the single-stream "
+                       f"graph on their files: L+R within {worst[0]:.3g} "
+                       f"(limit 2e-5 * scale), L-R within {worst[1]:.3g} "
+                       f"(limit 2 LSB, {2 / 32768:.3g})")
+    if profile:
+        top, *_ = stereo_bank_graph(paths)
+        profile_run(lambda: Runner(top, chunk_size=ST_CHUNK, device=dev,
+                                   channels=BANK_C).run(),
+                    f"{profile}.bank_stereo.txt", "bank-stereo")
+    scan_run = run_bank_stereo(paths, ST_SCAN_CHUNK, dev)
+    scans, scan_rows = scan_run["scan_launches"], scan_run["scan_rows"]
+    if scans < 1 or scan_rows <= scans or scans > scan_run["chunks"]:
+        raise AssertionError(f"bank-stereo at {ST_SCAN_CHUNK}: scan {scans}"
+                             f" launches of {scan_rows} rows")
+    hold_stereo_tones("bank-stereo overlap path", scan_run, tones)
+    s_held, s_twin, s_twin_ms = hold_bank_rows(
+        "overlap bank", scan_run["scan_calls"], _scan_rows, _scan_row,
+        _scan_twin)
+    k_held, k_twin, _ = hold_bank_rows(
+        "pll_phase bank", scan_run["k3_calls"], _k3_rows, _k3_row, _k3_twin)
+    log("bank-stereo", f"at chunk {ST_SCAN_CHUNK}: "
+                       f"{BANK_C * n / scan_run['dt'] / 1e6:.2f} M complex "
+                       f"samples/s; overlap scan {scans} launches carrying "
+                       f"{scan_rows} rows ({scan_rows / scans:.1f} a "
+                       f"launch), K3 {scan_run['launches']} carrying "
+                       f"{scan_run['rows']}; scan: {s_held} rows equal to "
+                       f"their one-row launch bit for bit, the plain scan on "
+                       f"4 rows of the first {s_twin:.3g} off (limit 1e-6) "
+                       f"in {s_twin_ms:.0f} ms (host clock); "
+                       f"K3: {k_held} rows held likewise; L+R tones held")
+    log("bank-stereo", "tiers by row at the overlap chunk: " + " ".join(
+        f"{c}:{t}" for c, t in enumerate(scan_run["tiers"])))
+    return {"launches": launches, "rows": rows, "chunk": ST_CHUNK,
+            "scan_launches": scans, "scan_rows": scan_rows,
+            "scan_chunk": ST_SCAN_CHUNK,
+            "k3_at_scan_chunk": (scan_run["launches"], scan_run["rows"]),
+            "max_abs_err": max(k3_twin, k_twin), "scan_err": s_twin,
+            "twin_ms_4_rows": k3_twin_ms, "scan_plain_ms_4_rows": s_twin_ms,
+            "sps": BANK_C * n / run["dt"],
+            "scan_sps": BANK_C * n / scan_run["dt"]}
+
+
+def phase_bank_timing(dev, gen, ns_step, scan_ns_step):
+    """K3 and the overlap scan timed batched at the stereo bank's PLL
+    chunks (K3 at ST_CHUNK, the scan at ST_SCAN_CHUNK, where it plans), C
+    in BATCH_ROWS rows of a noisy 19 kHz pilot: device time (CUDA-graph
+    replay), the ratio to one row, and each beside its chain floor (K3:
+    phase 8's probe x N; the scan: its probe x the W+L steps of a
+    segment) and the bound of the batch's bytes and operations.  Returns
+    {C: record}."""
+    blk = carrier.PLLBlock(100.0, 19e3 - 50, 19e3 + 50, multiplier=2)
+    blk.input_rate = ST_RATE
+    blk.initialize()
+    params = (blk._alpha, blk._beta, blk._freq_min, blk._freq_max)
+    n, n_scan = ST_CHUNK, ST_SCAN_CHUNK
+    lseg, warm = pll_overlap.plan_overlap(n_scan, float(params[0]))
+    consts = tuple(float(np.float32(v)) for v in (*params, 2))
+    steps, seg = warm + lseg, n_scan // lseg
+    out = {}
+    for c in BATCH_ROWS:
+        t = torch.arange(n_scan, device=dev, dtype=torch.float64)
+        x = (torch.polar(torch.ones(c, n_scan, device=dev,
+                                    dtype=torch.float64),
+                         2 * np.pi * 19e3 / ST_RATE * t
+                         + torch.rand(c, 1, generator=gen, device=dev,
+                                      dtype=torch.float64) * 6.28)
+             + 0.3 * torch.randn(c, n_scan, generator=gen, device=dev,
+                                 dtype=torch.complex128)).to(
+                                     torch.complex64).contiguous()
+        xk = x[:, :n].contiguous()
+        st = torch.tensor([[0.0, 0.0, float(params[2])]] * c, device=dev)
+        k3_ms = graph_ms(lambda: pll.pll_phase(xk, st, *params, 2.0), 5, 3)
+        leaves = tuple(st[:, i].contiguous() for i in range(3))
+        init = pll_overlap._initial_states(x, leaves, seg, lseg, warm)
+        scan_ms = graph_ms(lambda: pll_overlap._scan_kernel(
+            x, init, consts, lseg, warm), 3, 3)
+        k3_bound = 1e3 * max(c * n * PLL_BYTES / HBM_BYTES_PER_S,
+                             c * n * PLL_OPS / FP32_FLOP_PER_S)
+        scan_bytes = c * (n_scan * 8 + 5 * seg * 4 + 3 * n_scan * 4
+                          + 10 * seg * 4)
+        scan_bound = 1e3 * max(scan_bytes / HBM_BYTES_PER_S,
+                               c * steps * seg * OVERLAP_OPS
+                               / FP32_FLOP_PER_S)
+        out[c] = {"k3_graph_ms": k3_ms, "scan_graph_ms": scan_ms,
+                  "k3_bound_ms": k3_bound, "scan_bound_ms": scan_bound}
+        del x, xk, init
+    k3_floor, scan_floor = n * ns_step / 1e6, steps * scan_ns_step / 1e6
+    for c, rec in out.items():
+        rec["k3_ratio"] = rec["k3_graph_ms"] / out[1]["k3_graph_ms"]
+        rec["scan_ratio"] = rec["scan_graph_ms"] / out[1]["scan_graph_ms"]
+        rec["k3_floor_ratio"] = rec["k3_graph_ms"] / k3_floor
+        rec["scan_floor_ratio"] = rec["scan_graph_ms"] / scan_floor
+        log("bank-time", f"C = {c:3d} rows: K3 [{n}] {rec['k3_graph_ms']:.4f}"
+                         f" ms device ({rec['k3_ratio']:.3f}x one row, "
+                         f"{rec['k3_floor_ratio']:.3f}x its chain floor "
+                         f"{k3_floor:.4f} ms; bound "
+                         f"{rec['k3_bound_ms']:.5f} ms); scan [{n_scan}] "
+                         f"{rec['scan_graph_ms']:.4f} ms device, {c * seg} "
+                         f"segments of {lseg} after {warm} warm-up steps "
+                         f"({rec['scan_ratio']:.3f}x one row, "
+                         f"{rec['scan_floor_ratio']:.3f}x its chain floor "
+                         f"{scan_floor:.4f} ms; bound "
+                         f"{rec['scan_bound_ms']:.5f} ms)")
+    return out
+
+
+def bank_class_input(kind, dev, gen):
+    """[BANK_C, CLASS_CHUNKS x CLASS_CHUNK] complex64 on the card: one
+    broadcast-FM row (the stereo multiplex of write_stereo_capture at
+    75 kHz deviation and 256 kS/s, or the RDS multiplex of
+    tests/parallel/test_rds_bank.py at 228 kS/s) rotated by a random
+    phase on each row, with noise ~40 dB under it."""
+    n = CLASS_CHUNKS * CLASS_CHUNK
+    rate = 228e3 if kind == "rds" else 256e3
+    t = torch.arange(n, device=dev, dtype=torch.float64) / rate
+    if kind == "rds":
+        rng = np.random.default_rng(3)
+        groups = [tuple(int(v) for v in rng.integers(0, 1 << 16, 4))
+                  for _ in range(int(n / rate * RDS_BAUD / 104) + 1)]
+        chips = torch.from_numpy(manchester_diff(np.concatenate(
+            [rds_group_bits(g) for g in groups])).astype(np.float64)).to(dev)
+        k = torch.clamp((t * 2 * RDS_BAUD).long(), max=len(chips) - 1)
+        mpx = (0.2 * torch.sin(2 * np.pi * 800.0 * t)
+               + 0.1 * torch.cos(2 * np.pi * 19e3 * t)
+               + 0.06 * (2 * chips[k] - 1) * torch.cos(2 * np.pi * 57e3 * t))
+        ph = 2 * np.pi * torch.cumsum(mpx, 0)
+    else:
+        left = 0.4 * torch.sin(2 * np.pi * 800.0 * t)
+        right = 0.4 * torch.sin(2 * np.pi * 2100.0 * t)
+        mpx = (left + right) + 0.1 * torch.cos(2 * np.pi * 19e3 * t) \
+            + (left - right) * torch.cos(2 * np.pi * 38e3 * t)
+        ph = 2 * np.pi * 75e3 * torch.cumsum(mpx, 0) / rate
+    rot = torch.rand(BANK_C, 1, generator=gen, device=dev,
+                     dtype=torch.float64) * 2 * np.pi
+    x = torch.polar(torch.ones(BANK_C, n, device=dev, dtype=torch.float64),
+                    ph + rot) + 0.01 * torch.randn(
+        BANK_C, n, generator=gen, device=dev, dtype=torch.complex128)
+    return x.to(torch.complex64), rate
+
+
+def bank_class_chain(kind, rows, rate, dev):
+    """The port's ordinary blocks for the class's receiver, run banked
+    over ``rows`` (host arrays) with run(channels=64), optimize off: the
+    WBFM demodulators (stereo with the vector pilot) -> Downsampler(8),
+    or the RDS front end up to the RRC filter.  Returns [C, ...] (stereo:
+    left and right joined on the last axis)."""
+    top = CompositeBlock()
+    src = BankSource([_ArraySource(r, rate) for r in rows])
+    if kind == "rds":
+        hilb, delay = HilbertTransformBlock(129), DelayBlock(64)
+        mixer = MultiplyConjugateBlock()
+        pilot = PilotRecoveryBlock(129, (18e3, 20e3), multiplier=3)
+        sinks = [_Collect()]
+        top.connect(src, FrequencyDiscriminatorBlock(1.25), hilb, delay)
+        top.connect(hilb, pilot)
+        top.connect(delay, "out", mixer, "in1")
+        top.connect(pilot, "out", mixer, "in2")
+        top.connect(mixer, LowpassFilterBlock(128, 4e3),
+                    RootRaisedCosineFilterBlock(101, 1, RDS_BAUD), sinks[0])
+    elif kind == "mono":
+        sinks = [_Collect()]
+        top.connect(src, WBFMMonoDemodulator(), DownsamplerBlock(8),
+                    sinks[0])
+    else:
+        demod = WBFMStereoDemodulator(pilot="vector")
+        sinks = [_Collect(), _Collect()]
+        top.connect(src, demod)
+        for port, sink in zip(("left", "right"), sinks):
+            ds = DownsamplerBlock(8)
+            top.connect(demod, port, ds, "in")
+            top.connect(ds, "out", sink, "in")
+    Runner(top, chunk_size=CLASS_CHUNK, optimize=False, device=dev,
+           channels=len(rows)).run()
+    return np.concatenate([_rows(s) for s in sinks], axis=-1)
+
+
+def phase_bank_classes(dev, gen):
+    """WBFMMonoBank, WBFMStereoBank and RDSBank at BANK_C channels over
+    CLASS_CHUNKS chunks of CLASS_CHUNK samples: each row against the
+    port's block chain run banked on the same rows (2e-4 * scale, the JAX
+    package's bound for its classes against its block graph), and each
+    class timed in complex samples/s summed over the channels (host clock
+    around synchronized steps, after a warm-up step)."""
+    classes = {"mono": WBFMMonoBank, "stereo": WBFMStereoBank,
+               "rds": RDSBank}
+    out = {}
+    for kind, cls in classes.items():
+        x, rate = bank_class_input(kind, dev, gen)
+        bank = cls(if_rate=rate, device=dev) if kind == "rds" else \
+            cls(if_rate=rate, decimation=8, device=dev)
+        chunks = x.split(CLASS_CHUNK, dim=-1)
+        state = bank.init_state(BANK_C)
+        bank.step(state, chunks[0].contiguous())                 # warm-up
+        state = bank.init_state(BANK_C)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ys = []
+        for xc in chunks:
+            state, y = bank.step(state, xc.contiguous())
+            ys.append(torch.cat(y, -1) if kind == "stereo" else y)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        if kind == "stereo":
+            half = [y.split(y.shape[-1] // 2, -1) for y in ys]
+            got = torch.cat([torch.cat([h[0] for h in half], -1),
+                             torch.cat([h[1] for h in half], -1)], -1)
+        else:
+            got = torch.cat(ys, -1)
+        got = got.cpu().numpy()
+        exp = bank_class_chain(kind, list(x.cpu().numpy()), rate, dev)
+        scale = max(1.0, float(np.abs(exp).max()))
+        err = float(np.abs(got - exp).max())
+        if got.shape != exp.shape or err > 2e-4 * scale \
+                or not np.isfinite(got).all() or np.abs(exp).max() < 1e-3:
+            raise AssertionError(f"bank-classes {cls.__name__}: {got.shape} "
+                                 f"vs {exp.shape}, max |class - chain| "
+                                 f"{err} > 2e-4 * {scale:.3g}")
+        sps = x.numel() / dt
+        out[cls.__name__] = {"sps": sps, "max_abs_err": err}
+        log("bank-classes", f"{cls.__name__} [{BANK_C} x {CLASS_CHUNK}] x "
+                            f"{CLASS_CHUNKS} chunks at {rate:.0f} S/s: "
+                            f"{sps / 1e9:.3f} G complex samples/s summed over "
+                            f"the channels (host clock, synchronized); max "
+                            f"|class - banked block chain| {err:.3g} (limit "
+                            f"2e-4 * {scale:.3g})")
+        del x, chunks, ys
+    torch.cuda.empty_cache()
+    return out
+
+
+POCSAG_SENT = {0: (0x12342, 2, "HI"), 2: (0x0ABC1, 3, "BANK"),
+               5: (0x1F003, 1, "ROW 5"), 7: (0x00420, 0, "CQ")}
+
+
+def phase_bank_host(tmp, dev):
+    """The per-channel host fan-out: a BankSource of 8 POCSAG captures at
+    RATE, 1 s each (rows POCSAG_SENT carry their own message, one batch
+    after the preamble; the others noise), through the rx_pocsag graph by
+    hand (Tuner -> POCSAGReceiver -> a sink) with run(channels=8): the
+    framer and decoder run one clone a channel, and each row's decoded
+    messages must be what was sent on it, none on the noise rows."""
+    rows = []
+    for c in range(8):
+        z = np.zeros(RATE, np.complex64)
+        if c in POCSAG_SENT:
+            bits = pocsag_bits(*POCSAG_SENT[c])[:576 + 32 * 17]
+            iq = fsk(bits, 1200, RATE, lambda b: np.where(b == 1, -4500.0,
+                                                         4500.0))
+            z[int(0.02 * RATE):int(0.02 * RATE) + len(iq)] = iq
+        rows.append(write_iq(tmp, f"pocsag{c}.f32.iq", noisy(z, 0, 50 + c)))
+    top, sink = CompositeBlock(), _Collect()
+    top.connect(BankSource([IQFileSource(p, "f32le", RATE) for p in rows]),
+                TunerBlock(0, 12e3, round(RATE / 12.5e3)),
+                POCSAGReceiver(1200), sink)
+    t0 = time.monotonic()
+    Runner(top, device=dev, channels=8).run()
+    dt = time.monotonic() - t0
+    got = [[(m.address, m.func, m.alphanumeric) for call in sink.got[c::8]
+            for m in call] for c in range(8)]
+    want = [[POCSAG_SENT[c]] if c in POCSAG_SENT else [] for c in range(8)]
+    if len(sink.got) % 8 or got != want:
+        raise AssertionError(f"bank-host: decoded {got}, sent {want}")
+    log("bank-host", f"rx_pocsag graph, run(channels=8), {RATE} S/s x 1 s: "
+                     f"each row's messages as sent ({sum(map(len, got))} on "
+                     f"rows {sorted(POCSAG_SENT)}), none on the noise rows; "
+                     f"{8 * RATE / dt / 1e6:.2f} M complex samples/s summed "
+                     f"over the channels end to end")
+    return 8 * RATE / dt
+
+
 def profile_run(run, out, what):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1904,6 +2668,36 @@ def main(argv):
     overlap["rds_path_launches"] = rds["overlap_launches"]
     overlap["max_abs_err"] = max(overlap["max_abs_err"], rds["overlap_err"])
     del rds
+    with tempfile.TemporaryDirectory() as tmp:
+        mono = phase_bank_mono(tmp, dev, profile)
+    k2["bank_mono_path"] = mono
+    k2["max_abs_err"] = max(k2["max_abs_err"], mono["max_abs_err"])
+    with tempfile.TemporaryDirectory() as tmp:
+        st = phase_bank_stereo(tmp, dev, profile)
+    timing = phase_bank_timing(dev, gen, k3["chain_ns_per_step"],
+                               overlap["chain_floor_ns_per_step"])
+    k3["bank_stereo_path"] = {
+        "launches": st["launches"], "rows": st["rows"], "chunk": ST_CHUNK,
+        "plain_ms_4_rows": st["twin_ms_4_rows"],
+        "batched": {c: {k: v for k, v in r.items() if k.startswith("k3")}
+                    for c, r in timing.items()}}
+    k3["max_abs_err"] = max(k3["max_abs_err"], st["max_abs_err"])
+    overlap["bank_stereo_path"] = {
+        "launches": st["scan_launches"], "rows": st["scan_rows"],
+        "chunk": ST_SCAN_CHUNK,
+        "plain_ms_4_rows": st["scan_plain_ms_4_rows"],
+        "batched": {c: {k: v for k, v in r.items() if k.startswith("scan")}
+                    for c, r in timing.items()}}
+    overlap["max_abs_err"] = max(overlap["max_abs_err"], st["scan_err"])
+    classes = phase_bank_classes(dev, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        host_sps = phase_bank_host(tmp, dev)
+    log("bank", json.dumps({"bank_mono_sps": mono["sps"],
+                            "bank_mono_k2_sps": mono["k2_sps"],
+                            "bank_stereo_sps": st["sps"],
+                            "bank_host_sps": host_sps,
+                            "classes_sps": {k: v["sps"]
+                                            for k, v in classes.items()}}))
     entries = [k1, k2, k3, overlap]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -32,7 +32,14 @@ class PLLBlock(SignalBlock):
     K3 (ops/pll.py).  Other multipliers run K3 on every chunk.
     ``exact=True`` skips the overlap tier, whose accepted outputs are
     approximate within fixed warm-up tolerances.  ``tier_counts`` counts
-    the chunks each tier produced."""
+    the row-chunks each tier produced, ``row_tiers`` the tier of each row
+    of the last chunk.
+
+    A bank x [C, N] (a channel bank, or a channelizer's batch) runs row by
+    row, each row what it gives alone, with state leaves [C]: each tier
+    takes its rows in one call.  (The JAX block scans axis 0 of such a
+    batch and fails; under its channel mesh it vmaps the one-stream
+    block, which is what the port matches.)"""
 
     def __init__(self, loop_bandwidth: float, frequency_min: float,
                  frequency_max: float, multiplier: float = 1.0,
@@ -44,6 +51,7 @@ class PLLBlock(SignalBlock):
         self.multiplier = multiplier
         self.exact = bool(exact)
         self.tier_counts = {1: 0, 2: 0, 3: 0}
+        self.row_tiers: list = []
         self.add_type_signature(
             [Input("in", ComplexFloat32)],
             [Output("out", ComplexFloat32), Output("error", Float32)])
@@ -67,26 +75,41 @@ class PLLBlock(SignalBlock):
 
     def _sequential(self, state, x):
         from luaradio_tpu_torch.ops.pll import pll_phase
+        lead = x.shape[:-1]
         st = torch.stack([torch.as_tensor(s, dtype=torch.float32,
-                                          device=x.device) for s in state])
-        out, err, st2 = pll_phase(x.contiguous(), st, self._alpha,
-                                  self._beta, self._freq_min,
+                                          device=x.device).expand(lead)
+                          for s in state], dim=-1)
+        out, err, st2 = pll_phase(x.contiguous(), st.contiguous(),
+                                  self._alpha, self._beta, self._freq_min,
                                   self._freq_max, self.multiplier)
-        return (st2[0], st2[1], st2[2]), (out, err)
+        return tuple(st2.unbind(-1)), (out, err)
 
     def process(self, state, x):
-        if x.dim() != 1:
-            raise ValueError(f"{self.name}: runs one stream [N], got "
-                             f"{tuple(x.shape)}")
+        if x.dim() > 2:
+            return self._rows(state, x)
         mult = self.multiplier
         if float(mult).is_integer() and mult >= 1:
             from luaradio_tpu_torch.ops.pll_linear import pll_hybrid
-            return pll_hybrid(x, state, self._alpha, self._beta,
-                              self._freq_min, self._freq_max, int(mult),
-                              self._sequential, allow_overlap=not self.exact,
-                              tiers=self.tier_counts)
-        self.tier_counts[3] += 1
-        return self._sequential(state, x)
+            out = pll_hybrid(x, state, self._alpha, self._beta,
+                             self._freq_min, self._freq_max, int(mult),
+                             self._sequential, allow_overlap=not self.exact,
+                             row_tiers=self.row_tiers)
+        else:
+            self.row_tiers[:] = [3] * (x.shape[0] if x.dim() == 2 else 1)
+            out = self._sequential(state, x)
+        for tier in self.row_tiers:
+            self.tier_counts[tier] += 1
+        return out
+
+    def _rows(self, state, x):
+        """More than one leading axis: run them flattened as one bank."""
+        lead, n = x.shape[:-1], x.shape[-1]
+        flat = tuple(torch.as_tensor(s, dtype=torch.float32,
+                                     device=x.device).expand(lead)
+                     .reshape(-1) for s in state)
+        st, (out, err) = self.process(flat, x.reshape(-1, n).contiguous())
+        return (tuple(v.reshape(lead) for v in st),
+                (out.reshape(x.shape), err.reshape(x.shape)))
 
 
 class PilotRecoveryBlock(SignalBlock):

@@ -1,5 +1,6 @@
-from luaradio_tpu_torch.blocks.sources import files, signal
+from luaradio_tpu_torch.blocks.sources import bank, files, signal
+from luaradio_tpu_torch.blocks.sources.bank import *  # noqa: F401,F403
 from luaradio_tpu_torch.blocks.sources.files import *  # noqa: F401,F403
 from luaradio_tpu_torch.blocks.sources.signal import *  # noqa: F401,F403
 
-__all__ = files.__all__ + signal.__all__
+__all__ = bank.__all__ + files.__all__ + signal.__all__

@@ -171,24 +171,29 @@ class CompositeBlock(Block):
     # -- run API (mirrors composite.lua:514-950) ---------------------------
     def run(self, max_chunks: int | None = None,
             chunk_size: int | None = None, optimize: bool = True,
-            device=None):
+            device=None, channels: int | None = None):
         """Run the flow graph to completion (EOF of any source).
 
         ``device`` defaults to the CUDA card (core/platform.py
-        resolve_device); ``device="cpu"`` runs the plain PyTorch path."""
+        resolve_device); ``device="cpu"`` runs the plain PyTorch path.
+        ``channels=C`` runs the graph as a bank of C channels on the one
+        device (core/runtime.py Runner), the single-card form of the JAX
+        package's ``run(mesh=<channel mesh>, channels=C)``."""
         from luaradio_tpu_torch.core.runtime import Runner
         runner = Runner(self, chunk_size=chunk_size, optimize=optimize,
-                        device=device)
+                        device=device, channels=channels)
         runner.run(max_chunks=max_chunks)
         return self
 
     def start(self, chunk_size: int | None = None,
-              optimize: bool = True, device=None):
+              optimize: bool = True, device=None,
+              channels: int | None = None):
         from luaradio_tpu_torch.core.runtime import Runner
         if self._runner is not None and self._runner.running:
             raise RuntimeError("flow graph already running")
         self._runner = Runner(self, chunk_size=chunk_size,
-                              optimize=optimize, device=device)
+                              optimize=optimize, device=device,
+                              channels=channels)
         self._runner.start()
         return self
 

@@ -14,10 +14,20 @@ no copy), the pump feeds the segments, and boundary
 outputs are copied back to the host asynchronously for the host blocks
 (file sinks).  PyTorch queues the card's work asynchronously, so host I/O
 for one chunk overlaps device compute of the previous one.
+
+A channel bank (``Runner(..., channels=C)``, the one-card form of the JAX
+package's ``run(mesh=<channel mesh>, channels=C)``) runs the same graph on
+C independent channels: every device block's state is broadcast to
+(C,) + its shape and its chunks carry a leading [C] axis (device blocks
+broadcast over leading axes, as the JAX package's vmap does), BankSource
+chunks arrive as [C, n], device sources are generated once and replicated
+C times, and mid-graph host blocks run as one clone per channel on their
+row of the boundary arrays.
 """
 
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 from typing import Any
@@ -59,12 +69,39 @@ def _wants_host(block: Block) -> bool:
     return not (isinstance(block, SinkBlock) and not block.wants_data)
 
 
+def broadcast_state(state, shape: tuple):
+    """A block's state with every leaf broadcast to ``shape`` + its own
+    shape (tuples, lists and None kept)."""
+    if state is None or not shape:
+        return state
+    if isinstance(state, (tuple, list)):
+        return type(state)(broadcast_state(v, shape) for v in state)
+    return state.expand(shape + state.shape).clone()
+
+
+class _Banked(list):
+    """Per-channel host values of a channel bank: element c is channel c's
+    output of a host block clone (variable length per channel).  A list
+    whose len() is the total, so sinks that only measure length see every
+    channel's samples."""
+
+    def __len__(self):
+        return sum(len(r) if hasattr(r, "__len__") else 1
+                   for r in list.__iter__(self))
+
+    @property
+    def rows(self):
+        return list(list.__iter__(self))
+
+
 class Segment:
     """A maximal group of device blocks run as one step function."""
 
     def __init__(self, graph: Graph, blocks: list[Block], bid: dict[int, str],
-                 wire_ingest: dict[str, Any] | None = None):
+                 wire_ingest: dict[str, Any] | None = None,
+                 channels: int | None = None):
         self.blocks = blocks
+        self.channels = channels
         self.bid = bid
         self.wire_ingest = wire_ingest or {}
         self._edges = graph.edges
@@ -97,13 +134,16 @@ class Segment:
                     if any(_wants_host(c.block) for c in outside):
                         self.host_out_keys.append(key)
 
+        # a block downstream of a batch-producing block (ChannelizerBlock)
+        # carries its state per batch element; a channel bank adds its
+        # [C] axis in front.  A device source is generated once and its
+        # chunk replicated over the bank, so its state stays as it is.
         self.states = {}
         for b in blocks:
-            st = b.init_state()
-            batch = tuple(graph.in_batch.get(id(b), ()))
-            if batch and st is not None:
-                st = st.expand(batch + st.shape).clone()
-            self.states[bid[id(b)]] = st
+            shape = tuple(graph.in_batch.get(id(b), ()))
+            if channels and not isinstance(b, SignalSourceBlock):
+                shape = (channels,) + shape
+            self.states[bid[id(b)]] = broadcast_state(b.init_state(), shape)
 
     def run(self, ext: dict) -> dict:
         """One chunk through the segment's blocks, in order."""
@@ -115,6 +155,10 @@ class Segment:
             k = bid[id(b)]
             if isinstance(b, SignalSourceBlock):
                 st, outs = b.generate(self.states[k], self._gen_len[k])
+                if self.channels:
+                    outs = tuple(y.expand((self.channels,) + y.shape)
+                                 for y in (outs if isinstance(
+                                     outs, (tuple, list)) else (outs,)))
             else:
                 ins = [vals[f"{bid[id(src.block)]}.{src.index}"]
                        for src in (edges[PortRef(b, i)]
@@ -211,16 +255,53 @@ class _Prefetcher:
 
 class Runner:
     """Runs a flow graph on one device (``device=None`` is the CUDA card;
-    ``"cpu"`` runs the plain path)."""
+    ``"cpu"`` runs the plain path).
+
+    ``channels=C`` runs it as a bank of C channels (module docstring).
+    It is taken from the graph's BankSource when not given; a BankSource
+    of another width, or a host source that is not a BankSource, raises,
+    and so does a host block that feeds a device block (its per-channel
+    output has no common length to batch)."""
 
     def __init__(self, top: CompositeBlock, chunk_size: int | None = None,
-                 optimize: bool = True, device=None):
+                 optimize: bool = True, device=None,
+                 channels: int | None = None):
+        from luaradio_tpu_torch.blocks.sources.bank import BankSource
         self.graph = g = Graph(top, chunk_size=chunk_size, optimize=optimize,
                                device=device)
         self.device = g.device
         self.bid = {id(b): f"b{i}" for i, b in enumerate(g.order)}
         self._by_bid = {f"b{i}": b for i, b in enumerate(g.order)}
         self.sources = [b for b in g.order if isinstance(b, HostSourceBlock)]
+
+        for s in self.sources:
+            if isinstance(s, BankSource):
+                if channels is None:
+                    channels = s.n_channels
+                elif s.n_channels != channels:
+                    raise ValueError(f"{s.name}: {s.n_channels} channels in "
+                                     f"a bank of channels={channels}")
+            elif channels:
+                raise ValueError(f"{s.name}: a bank of channels={channels} "
+                                 f"reads its host streams through a "
+                                 f"BankSource")
+        self.channels = channels
+        # one clone of each mid-graph host block per channel, each with
+        # its own state (framers, decoders); their outputs stay on the host
+        self._bank_clones: dict[int, list[Block]] = {}
+        if channels:
+            for b in g.order:
+                if (b.domain != "host" or not b.outputs
+                        or isinstance(b, HostSourceBlock)):
+                    continue
+                if any(c.block.domain == "device"
+                       for oi in range(len(b.outputs))
+                       for c in g.consumers(PortRef(b, oi))):
+                    raise NotImplementedError(
+                        f"channel bank: host block {b.name} feeding a "
+                        f"device block is not supported")
+                self._bank_clones[id(b)] = [copy.deepcopy(b)
+                                            for _ in range(channels)]
 
         # A host source whose outputs feed only device blocks has its
         # chunks copied to the device by the read-ahead thread, as raw
@@ -237,7 +318,7 @@ class Runner:
             all_dev = all(c.block.domain == "device"
                           for oi in range(len(s.outputs))
                           for c in g.consumers(PortRef(s, oi)))
-            if (all_dev and len(s.outputs) == 1
+            if (all_dev and len(s.outputs) == 1 and not channels
                     and hasattr(s, "resident_setup")
                     and s.resident_setup(g.out_chunk[id(s)])):
                 self._resident_srcs.add(id(s))
@@ -264,7 +345,8 @@ class Runner:
             host = [b for b in g.order
                     if g.stage[id(b)] == st and b.domain == "host"
                     and not isinstance(b, HostSourceBlock)]
-            seg = Segment(g, dev, self.bid, self.wire_ingest) if dev else None
+            seg = (Segment(g, dev, self.bid, self.wire_ingest, channels)
+                   if dev else None)
             self.stage_plan.append((seg, host))
 
         # Pipelined pumping: when no device block consumes a host block's
@@ -419,6 +501,18 @@ class Runner:
         while fetches:
             fetches.pop().synchronize()
         for b in host_blocks:
+            # a bank's clones, per-channel inputs and masked device
+            # outputs go row by row (compacting [C, T] values with a
+            # [C, T] mask in one values[mask] would join the channels);
+            # a sink that only measures length takes them whole
+            srcs = [g.edges[PortRef(b, i)] for i in range(len(b.inputs))]
+            if id(b) in self._bank_clones or _wants_host(b) and any(
+                    isinstance(values.get(f"{self.bid[id(src.block)]}"
+                                          f".{src.index}"), _Banked)
+                    or (self.channels and src.block.masked_output)
+                    for src in srcs):
+                self._run_host_banked(b, values, nvalid)
+                continue
             ins = []
             for i in range(len(b.inputs)):
                 src = g.edges[PortRef(b, i)]
@@ -439,6 +533,42 @@ class Runner:
                         nvalid[f"{k}.{oi}"] = len(y)
                     except TypeError:
                         pass
+
+    def _run_host_banked(self, b, values, nvalid):
+        """Run host block ``b`` once per channel (clones carry
+        per-channel state): a device input is sliced row by row from the
+        copy already on the host, a masked one compacted row by row, and
+        per-channel host inputs pass through."""
+        g = self.graph
+        rows = []
+        for i in range(len(b.inputs)):
+            src = g.edges[PortRef(b, i)]
+            sk = f"{self.bid[id(src.block)]}.{src.index}"
+            v = values[sk]
+            if isinstance(v, _Banked):
+                rows.append(v.rows)
+                continue
+            nv = nvalid.get(sk)
+            if src.block.masked_output:
+                vals, mask = (t.numpy() for t in v)
+                if nv is not None and nv < mask.shape[-1]:
+                    mask = mask.copy()
+                    mask[..., max(0, nv):] = False
+                rows.append([vals[c][mask[c]] for c in range(self.channels)])
+            else:
+                arr = _to_host(v, nv)
+                rows.append([arr[c] for c in range(self.channels)])
+        clones = self._bank_clones.get(id(b))
+        outs = [(clones[c] if clones else b).process(*(r[c] for r in rows))
+                for c in range(self.channels)]
+        if clones and b.outputs:
+            k = self.bid[id(b)]
+            for oi in range(len(b.outputs)):
+                banked = _Banked(
+                    (o[oi] if isinstance(o, tuple) else o)
+                    if o is not None else [] for o in outs)
+                values[f"{k}.{oi}"] = banked
+                nvalid[f"{k}.{oi}"] = len(banked)
 
     def _dispatch_chunk(self):
         """Phase 1: sources + all device segments (queued on the card).
@@ -525,7 +655,8 @@ class Runner:
             self._prefetcher.shutdown()
             self._prefetcher = None
         first_err = None
-        for b in self.graph.order:
+        clones = [c for cl in self._bank_clones.values() for c in cl]
+        for b in list(self.graph.order) + clones:
             try:
                 b.cleanup()
             except BaseException as exc:  # noqa: BLE001 — keep cleaning
@@ -565,4 +696,4 @@ class Runner:
             raise err
 
 
-__all__ = ["Runner", "Segment"]
+__all__ = ["Runner", "Segment", "broadcast_state"]

@@ -3,8 +3,11 @@
 // Replaces the Pallas TPU kernel of the JAX package:
 //   K3  luaradio_tpu/ops/pll.py pll_pallas / _pll_phase_kernel
 //
-// What it computes, for one complex stream x[0..N) and the state
-// (phi_locked, phi_multiplied, freq) in radians:
+// What it computes, for each of C complex streams x[c, 0..N) and its state
+// (phi_locked, phi_multiplied, freq) in radians (the JAX package banks the
+// kernel as jax.vmap over C; here each row takes a thread block of its own,
+// so a bank of C streams is one launch of C blocks, and each row's bits are
+// those of a one-row launch of that row):
 //   theta[i] = arg(x[i]) as int32 turns (2^32 = 2 pi), zero[i] = (x[i] == 0);
 //   per sample, in order:
 //     record phi_m (the output oscillator BEFORE this update);
@@ -232,6 +235,13 @@ pll_phase_kernel(const float2* __restrict__ x, int64_t n,
                  float2* __restrict__ out, float* __restrict__ err,
                  float* __restrict__ state_out) {
   __shared__ __align__(16) Ring ring;
+  // block b runs row b: its stream, its state and its outputs
+  const int64_t row = blockIdx.x;
+  x += row * n;
+  out += row * n;
+  err += row * n;
+  state_in += 3 * row;
+  state_out += 3 * row;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int64_t tiles = (n + kTile - 1) / kTile;
   // the entry state, as every role derives it
@@ -432,16 +442,19 @@ __global__ void chain_probe_kernel(int steps, float k_ab, float fk,
 
 extern "C" {
 
-// K3.  x: complex64 [N] (interleaved float pairs), state_in: float32 [3]
-// radians; out: complex64 [N], err: float32 [N], state_out: float32 [3].
-// int_mult != 0 selects the integer-multiplier chain (mult_i, k_corr).
-// Returns the cudaError_t of the launch.
-int lr_pll_phase(const void* x, long long n, const void* state_in,
-                 float to_i, float to_f, float two_pi, float k_ab,
-                 float k_amb, float k_fm, float k_b, float fmin_k,
-                 float fmax_k, float k_corr, int mult_i, int int_mult,
-                 void* out, void* err, void* state_out, void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+// K3 on a bank.  x: complex64 [rows, N] (interleaved float pairs, rows
+// contiguous), state_in: float32 [rows, 3] radians; out: complex64
+// [rows, N], err: float32 [rows, N], state_out: float32 [rows, 3].  One
+// thread block a row.  int_mult != 0 selects the integer-multiplier chain
+// (mult_i, k_corr).  Returns the cudaError_t of the launch.
+int lr_pll_phase_rows(const void* x, int rows, long long n,
+                      const void* state_in, float to_i, float to_f,
+                      float two_pi, float k_ab, float k_amb, float k_fm,
+                      float k_b, float fmin_k, float fmax_k, float k_corr,
+                      int mult_i, int int_mult, void* out, void* err,
+                      void* state_out, void* stream) {
+  if (n < 0 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
   Consts c{to_i, to_f, two_pi, k_ab, k_amb, k_fm, k_b, fmin_k, fmax_k,
            k_corr, static_cast<uint32_t>(mult_i)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -451,11 +464,25 @@ int lr_pll_phase(const void* x, long long n, const void* state_in,
   float* ep = static_cast<float*>(err);
   float* so = static_cast<float*>(state_out);
   if (int_mult) {
-    pll_phase_kernel<true><<<1, kThreads, 0, s>>>(xp, n, sp, c, op, ep, so);
+    pll_phase_kernel<true><<<rows, kThreads, 0, s>>>(xp, n, sp, c, op, ep,
+                                                     so);
   } else {
-    pll_phase_kernel<false><<<1, kThreads, 0, s>>>(xp, n, sp, c, op, ep, so);
+    pll_phase_kernel<false><<<rows, kThreads, 0, s>>>(xp, n, sp, c, op, ep,
+                                                      so);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3 on one stream: x complex64 [N], state float32 [3]; the one-row form
+// of lr_pll_phase_rows.
+int lr_pll_phase(const void* x, long long n, const void* state_in,
+                 float to_i, float to_f, float two_pi, float k_ab,
+                 float k_amb, float k_fm, float k_b, float fmin_k,
+                 float fmax_k, float k_corr, int mult_i, int int_mult,
+                 void* out, void* err, void* state_out, void* stream) {
+  return lr_pll_phase_rows(x, 1, n, state_in, to_i, to_f, two_pi, k_ab,
+                           k_amb, k_fm, k_b, fmin_k, fmax_k, k_corr, mult_i,
+                           int_mult, out, err, state_out, stream);
 }
 
 // The samples a ring slot of K3 holds (the consumers' scan tile).

@@ -7,24 +7,27 @@
 // cumprod chaining of the multiplied oscillator and the output reshape
 // stay in torch (ops/pll_overlap.py), all O(S).
 //
-// What it computes: a chunk x[0..N) split into S segments of L samples,
+// What it computes: each row of a chunk x[C, 0..N) split into S segments
+// of L samples (C rows of a channel bank: one launch carries C x S
+// segments, and each row's segments compute what a one-row launch of that
+// row computes),
 // each run from a guessed state over W warm-up samples of its left
 // neighbour's tail and then its own L samples, the reference's per-sample
 // loop (pll.lua:138-167) in phasor form:
 //   err = atan2(Im, Re)(x * conj(v));  f2 = fr + beta err
 //   v  *= e^{j (f2 + alpha err)};      m *= e^{j (mult f2 + alpha err)}
 //   each renormalized by 1.5 - 0.5 |.|^2;  fr = clamp(f2, fmin, fmax)
-// Segment 0 starts from the true carry and holds it through the warm-up
-// (its warm-up input is the zero padding).
+// Segment 0 of each row starts from the true carry and holds it through
+// the warm-up (its warm-up input is the zero padding).
 //
 // What bounds it on an H100: each segment is a serial chain of W+L steps
 // (atan2f, two sincos, ~30 flops a step); S <= 4096 segments give at most
 // 32 blocks, so the card is mostly idle and the time is the chain's
-// latency.  Design: one thread per segment, its (vr, vi, mr, mi, fr) in
-// registers; blocks of 128 threads; each thread walks its samples in
-// order (consecutive addresses, served by L1), and the outputs are
-// written [L, S] so that neighbouring segments land at neighbouring
-// addresses.
+// latency.  Design: one thread per segment (g = c S + s over the bank),
+// its (vr, vi, mr, mi, fr) in registers; blocks of 128 threads; each
+// thread walks its samples in order (consecutive addresses, served by L1),
+// and the outputs are written [L, C S] so that neighbouring segments land
+// at neighbouring addresses.
 //
 // Rounding follows the plain PyTorch twin (pll_overlap_discard_reference),
 // where each * and + is its own elementwise kernel: every product and sum
@@ -55,18 +58,23 @@ __device__ __forceinline__ float renorm(float a, float b) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-overlap_scan_kernel(const float2* __restrict__ x, int s_count, int lseg,
-                    int warm, const float* __restrict__ init, Loop k,
-                    float* __restrict__ o_r, float* __restrict__ o_i,
+overlap_scan_kernel(const float2* __restrict__ x, int rows, int seg_per_row,
+                    int lseg, int warm, const float* __restrict__ init,
+                    Loop k, float* __restrict__ o_r, float* __restrict__ o_i,
                     float* __restrict__ o_e, float* __restrict__ snap,
                     float* __restrict__ exit_state) {
+  // s: this thread's segment over the bank (the column of every [., C S]
+  // array); sr: its index within its row
+  const int s_count = rows * seg_per_row;
   const int s = blockIdx.x * kThreads + threadIdx.x;
   if (s >= s_count) return;
+  const int sr = s % seg_per_row;
+  x += static_cast<int64_t>(s / seg_per_row) * seg_per_row * lseg;
   float vr = init[s], vi = init[s_count + s], mr = init[2 * s_count + s],
         mi = init[3 * s_count + s], fr = init[4 * s_count + s];
-  // sample i of this segment's walk is x[s*L - W + i]; segment 0's
+  // sample i of this segment's walk is x[row, sr*L - W + i]; segment 0's
   // warm-up reads the zero padding
-  const int64_t base = static_cast<int64_t>(s) * lseg - warm;
+  const int64_t base = static_cast<int64_t>(sr) * lseg - warm;
   const int steps = warm + lseg;
   for (int i = 0; i < steps; ++i) {
     if (i == warm) {
@@ -99,7 +107,7 @@ overlap_scan_kernel(const float2* __restrict__ x, int s_count, int lseg,
       o_i[o] = mi;
       o_e[o] = err;
     }
-    if (s != 0 || i >= warm) {
+    if (sr != 0 || i >= warm) {
       vr = __fmul_rn(vr2, gv);
       vi = __fmul_rn(vi2, gv);
       mr = __fmul_rn(mr2, gm);
@@ -152,22 +160,24 @@ __global__ void overlap_chain_probe_kernel(int steps, Loop k, uint32_t seed,
 
 extern "C" {
 
-// x: complex64 [S*L] (interleaved float pairs); init: float32 [5, S]
-// (vr, vi, mr, mi, fr); the loop constants alpha, beta, fmin, fmax and
-// mult; o_r, o_i, o_e: float32 [L, S]; snap (the state entering step W)
-// and exit_state: float32 [5, S].  Returns the cudaError_t of the launch.
-int lr_pll_overlap_scan(const void* x, int s_count, int lseg, int warm,
-                        const void* init, float alpha, float beta,
+// x: complex64 [C, S*L] (interleaved float pairs, rows contiguous); init:
+// float32 [5, C*S] (vr, vi, mr, mi, fr; column c S + s is row c's segment
+// s); the loop constants alpha, beta, fmin, fmax and mult; o_r, o_i, o_e:
+// float32 [L, C*S]; snap (the state entering step W) and exit_state:
+// float32 [5, C*S].  Returns the cudaError_t of the launch.
+int lr_pll_overlap_scan(const void* x, int rows, int seg_per_row, int lseg,
+                        int warm, const void* init, float alpha, float beta,
                         float fmin, float fmax, float mult, void* o_r,
                         void* o_i, void* o_e, void* snap, void* exit_state,
                         void* stream) {
-  if (s_count < 1 || lseg < 1 || warm < 0 || warm > lseg)
+  if (rows < 1 || seg_per_row < 1 || lseg < 1 || warm < 0 || warm > lseg ||
+      static_cast<long long>(rows) * seg_per_row > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   Loop k{alpha, beta, mult, fmin, fmax};
-  const int blocks = (s_count + kThreads - 1) / kThreads;
+  const int blocks = (rows * seg_per_row + kThreads - 1) / kThreads;
   overlap_scan_kernel<<<blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), s_count, lseg, warm,
+      static_cast<const float2*>(x), rows, seg_per_row, lseg, warm,
       static_cast<const float*>(init), k, static_cast<float*>(o_r),
       static_cast<float*>(o_i), static_cast<float*>(o_e),
       static_cast<float*>(snap), static_cast<float*>(exit_state));

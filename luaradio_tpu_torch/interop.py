@@ -16,6 +16,9 @@ stream started in one package can be resumed in the other:
 * a PLLBlock's state (phi_locked, phi_multiplied, freq): the phases
   wrapped to [-pi, pi], the range the port's sequential kernel converts
   to int32 turns (the JAX package's CPU loop keeps them in (-2 pi, 2 pi));
+  banked, each leaf [C];
+* a bank's state (WBFMMonoBank, WBFMStereoBank, RDSBank of parallel/):
+  the same leaves in the same order, [C, ...] each;
 * the leaf blocks of a composite (the stereo demodulator): each JAX
   block's state into the form its port twin carries, where a JAX FIR
   above 16 taps keeps the last L input samples of its FFT frame and the
@@ -67,12 +70,21 @@ def flagship_state_from_jax(state, inv_gain: float, device=None):
 
 def pll_state_from_jax(state, device=None):
     """A JAX PLLBlock's (phi_l, phi_m, freq) -> the port PLLBlock's state:
-    0-dim float32 tensors, phases wrapped to [-pi, pi]."""
+    float32 tensors, phases wrapped to [-pi, pi]; 0-dim for one stream,
+    [C] for a bank (the JAX block under a channel mesh)."""
     dev = resolve_device(device)
-    phi_l, phi_m, freq = (np.float64(np.array(s)) for s in state)
-    wrap = lambda p: np.float32(np.angle(np.exp(1j * p)))  # noqa: E731
-    return tuple(torch.tensor(v, dtype=torch.float32, device=dev)
-                 for v in (wrap(phi_l), wrap(phi_m), np.float32(freq)))
+    phi_l, phi_m, freq = (np.array(s, dtype=np.float64) for s in state)
+    wrap = lambda p: np.angle(np.exp(1j * p)).astype(np.float32)  # noqa: E731
+    return tuple(torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+                 for v in (wrap(phi_l), wrap(phi_m), freq))
+
+
+def bank_state_from_jax(jax_state, device=None) -> tuple:
+    """The state of a JAX bank (parallel/wbfm.py WBFMMonoBank,
+    WBFMStereoBank, parallel/rds.py RDSBank; sharded or not) -> the state
+    of the port's class of the same name: the same leaves in the same
+    order, complex kept complex."""
+    return tuple(tensor_from_jax(v, device) for v in jax_state)
 
 
 def state_for_block(block, state, device=None):
@@ -112,4 +124,5 @@ def composite_states_from_jax(jax_composite, port_composite, states,
 
 __all__ = ["tensor_from_jax", "block_state_from_jax",
            "flagship_state_from_jax", "pll_state_from_jax",
+           "bank_state_from_jax",
            "state_for_block", "composite_states_from_jax"]

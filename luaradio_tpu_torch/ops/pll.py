@@ -6,8 +6,10 @@ by hand in CUDA (csrc/pll.cu), with its plain twin in this module:
 
 * :func:`pll_phase` — x complex64 [N] and the state float32 [3]
   (phi_locked, phi_multiplied, freq) in radians -> (out complex64 [N],
-  err float32 [N], new state float32 [3]).  Replaces
-  ``luaradio_tpu/ops/pll.py`` ``pll_pallas``.
+  err float32 [N], new state float32 [3]); or a bank, x [C, N] with
+  state [C, 3], as one launch of C thread blocks, each row's bits those of
+  a one-row launch (the JAX package banks the kernel as ``jax.vmap``).
+  Replaces ``luaradio_tpu/ops/pll.py`` ``pll_pallas``.
 * :func:`pll_phase_reference` — the same function in plain PyTorch.
 
 The loop is carried in the phase domain: theta = arg(x) as int32 turns
@@ -34,7 +36,8 @@ float32 and explicitly wrapped 32-bit integer arithmetic (numpy scalars,
 int64 values wrapped to 32 bits, clamped before each convert), between the
 two parallel phases in torch.  A wrapper launches the CUDA kernel for CUDA
 tensors and takes the twin only for tensors on the CPU; anything else
-raises.  ``pll_phase.launches`` counts kernel launches.
+raises.  ``pll_phase.launches`` counts kernel launches and
+``pll_phase.rows`` the rows those launches carried.
 """
 
 from __future__ import annotations
@@ -63,10 +66,10 @@ TILE = 512
 
 def _lib():
     lib = cudabuild.load("pll")
-    if not lib.lr_pll_phase.argtypes:
-        lib.lr_pll_phase.argtypes = [_VP, _LL, _VP] + [_F] * 10 + \
-            [_I, _I, _VP, _VP, _VP, _VP]
-        lib.lr_pll_phase.restype = ctypes.c_int
+    if not lib.lr_pll_phase_rows.argtypes:
+        lib.lr_pll_phase_rows.argtypes = [_VP, _I, _LL, _VP] + \
+            [_F] * 10 + [_I, _I, _VP, _VP, _VP, _VP]
+        lib.lr_pll_phase_rows.restype = ctypes.c_int
         lib.lr_pll_chain_probe.argtypes = [_I, _F, _F, _VP, _VP, _VP]
         lib.lr_pll_chain_probe.restype = ctypes.c_int
         lib.lr_pll_tile.argtypes = []
@@ -167,58 +170,76 @@ def _chain(ti: list, zero: list, state, k: dict):
 
 
 def _check(x, state):
-    if x.dim() != 1 or x.dtype != torch.complex64 or not x.is_contiguous():
-        raise ValueError(f"x: want contiguous complex64 [N], got {x.dtype} "
-                         f"{tuple(x.shape)}")
-    if state.dtype != torch.float32 or tuple(state.shape) != (3,) \
+    if x.dim() not in (1, 2) or x.dtype != torch.complex64 \
+            or not x.is_contiguous():
+        raise ValueError(f"x: want contiguous complex64 [N] or [C, N], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    want = tuple(x.shape[:-1]) + (3,)
+    if state.dtype != torch.float32 or tuple(state.shape) != want \
             or state.device != x.device:
-        raise ValueError(f"state: want float32 [3] on {x.device}, got "
-                         f"{state.dtype} {tuple(state.shape)} on "
+        raise ValueError(f"state: want float32 {list(want)} on {x.device}, "
+                         f"got {state.dtype} {tuple(state.shape)} on "
                          f"{state.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def pll_phase_reference(x: torch.Tensor, state: torch.Tensor, alpha, beta,
-                        fmin, fmax, mult):
-    """Plain twin of :func:`pll_phase`, on any device."""
-    _check(x, state)
+def _reference_row(x, state, k: dict):
     ti, zero = theta_turns(x)
-    phim, err, st = _chain(ti.tolist(), zero.tolist(), state.tolist(),
-                           constants(alpha, beta, fmin, fmax, mult))
+    phim, err, st = _chain(ti.tolist(), zero.tolist(), state.tolist(), k)
     phim = torch.from_numpy(phim).to(x.device)
     out = torch.complex(torch.cos(phim), torch.sin(phim))
     return (out, torch.from_numpy(err).to(x.device),
             torch.tensor(np.array(st, np.float32), device=x.device))
 
 
+def pll_phase_reference(x: torch.Tensor, state: torch.Tensor, alpha, beta,
+                        fmin, fmax, mult):
+    """Plain twin of :func:`pll_phase`, on any device; a bank [C, N] walks
+    its rows one after another."""
+    _check(x, state)
+    k = constants(alpha, beta, fmin, fmax, mult)
+    if x.dim() == 1:
+        return _reference_row(x, state, k)
+    rows = [_reference_row(x[c], state[c], k) for c in range(x.shape[0])]
+    if not rows:
+        return (torch.empty_like(x),
+                torch.empty(x.shape, dtype=torch.float32, device=x.device),
+                state.clone())
+    return tuple(torch.stack(parts) for parts in zip(*rows))
+
+
 def pll_phase(x: torch.Tensor, state: torch.Tensor, alpha, beta, fmin, fmax,
               mult):
     """K3.  x complex64 [N], state float32 [3] (phi_locked,
     phi_multiplied, freq; radians) -> (out complex64 [N], err float32 [N],
-    new state float32 [3])."""
+    new state float32 [3]); a bank x [C, N], state [C, 3] gives [C, N],
+    [C, N] and [C, 3] from one launch."""
     _check(x, state)
     if x.device.type == "cpu":
         return pll_phase_reference(x, state, alpha, beta, fmin, fmax, mult)
     out, err, new_state = _launch(_lib(), x, state,
                                   constants(alpha, beta, fmin, fmax, mult))
     pll_phase.launches += 1
+    pll_phase.rows += x.shape[0] if x.dim() == 2 else 1
     return out, err, new_state
 
 
 def _launch(lib, x, state, k: dict):
-    """Launch ``lr_pll_phase`` of ``lib`` on CUDA tensors (checked by the
-    caller) and return (out, err, new state)."""
-    n = x.shape[0]
+    """Launch ``lr_pll_phase_rows`` of ``lib`` on CUDA tensors (checked by
+    the caller) and return (out, err, new state)."""
+    rows = x.shape[0] if x.dim() == 2 else 1
+    n = x.shape[-1]
     out = torch.empty_like(x)
-    err = torch.empty(n, dtype=torch.float32, device=x.device)
-    new_state = torch.empty(3, dtype=torch.float32, device=x.device)
+    err = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    new_state = torch.empty(state.shape, dtype=torch.float32,
+                            device=x.device)
     state = state.contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.lr_pll_phase(
-            x.data_ptr(), n, state.data_ptr(), float(_TO_I), float(_TO_F),
-            float(_TWO_PI), *(float(k[name]) for name in (
+        code = lib.lr_pll_phase_rows(
+            x.data_ptr(), rows, n, state.data_ptr(), float(_TO_I),
+            float(_TO_F), float(_TWO_PI), *(float(k[name]) for name in (
                 "k_ab", "k_amb", "k_fm", "k_b", "fmin_k", "fmax_k",
                 "k_corr")),
             k["mult_i"], int(k["int_mult"]), out.data_ptr(), err.data_ptr(),
@@ -228,6 +249,7 @@ def _launch(lib, x, state, k: dict):
 
 
 pll_phase.launches = 0
+pll_phase.rows = 0
 
 
 def chain_probe(steps: int, device) -> tuple[float, int]:

@@ -21,7 +21,9 @@ within 15/16 pi, the frequency inside [fmin, fmax], |tau| < 512.
 sequential kernel (K3, ops/pll.py) — or, where it plans, the
 overlap-and-discard tier — only for the chunks whose guards fail.  The
 JAX package chooses with ``lax.cond``; here the choice is a host branch on
-the guard, one device-to-host sync per chunk.
+the guard, one device-to-host sync per chunk.  A bank [C, N] (the JAX
+package vmaps the block over C) is solved row by row with the same rules,
+from one read of the C flags.
 """
 
 from __future__ import annotations
@@ -58,18 +60,21 @@ def _eigen_setup(alpha, beta):
 
 
 def pll_linear(x, state, alpha, beta, fmin, fmax, mult: int):
-    """Linear-scan PLL over x complex64 [N] with state (phi_l, phi_m, freq).
+    """Linear-scan PLL along the last axis of x complex64 [..., N] with
+    state (phi_l, phi_m, freq), each a scalar or [...] (one per row).
 
-    Returns (valid, new_state, out [N] complex64, err [N] float32): the
-    locked-loop solution and a bool tensor saying whether it is exact
-    (see :func:`pll_hybrid`).  ``mult`` is a positive integer."""
+    Returns (valid, new_state, out [..., N] complex64, err [..., N]
+    float32): the locked-loop solution and a bool tensor [...] saying for
+    each row whether it is exact (see :func:`pll_hybrid`).  ``mult`` is a
+    positive integer."""
     f32, c64 = torch.float32, torch.complex64
     dev = x.device
     alpha = np.float32(alpha)
     beta = np.float32(beta)
     af, bf = float(alpha), float(beta)
-    p0, m0, f0 = (torch.as_tensor(s, dtype=f32, device=dev) for s in state)
-    n = x.shape[-1]
+    lead, n = x.shape[:-1], x.shape[-1]
+    p0, m0, f0 = (torch.as_tensor(s, dtype=f32, device=dev).expand(lead)
+                  for s in state)
 
     theta = torch.atan2(x.imag, x.real)
     mag = x.abs()
@@ -77,10 +82,12 @@ def pll_linear(x, state, alpha, beta, fmin, fmax, mult: int):
                        torch.ones_like(x))
 
     # unwrapped input phase, detrended: theta_u[n] = p0 + c1*n + tau[n]
-    d0 = _wrap(theta[0] - p0)
-    inc = _wrap(theta[1:] - theta[:-1])
-    c1 = inc.sum() / float(max(n - 1, 1))
-    tau = d0 + torch.cat([theta.new_zeros(1), torch.cumsum(inc - c1, 0)])
+    d0 = _wrap(theta[..., 0] - p0)
+    inc = _wrap(theta[..., 1:] - theta[..., :-1])
+    c1 = inc.sum(-1) / float(max(n - 1, 1))
+    tau = d0[..., None] + torch.cat(
+        [theta.new_zeros(lead + (1,)),
+         torch.cumsum(inc - c1[..., None], -1)], -1)
 
     # residual-driven part s_h[n+1] = A s_h[n] + b tau[n], diagonalized
     lam, vmat, vinv = _eigen_setup(alpha, beta)
@@ -93,82 +100,151 @@ def pll_linear(x, state, alpha, beta, fmin, fmax, mult: int):
         u = complex(np.complex64(w_in[k])) * tau_c
         z_init = complex(np.complex64(z0_coef[k])) * f_dev
         zk = linrec_first_order(u, np.complex64(lam[k]), z_init)
-        zs.append(torch.cat([z_init[None], zk]))
+        zs.append(torch.cat([z_init[..., None], zk], -1))
     p_h = (complex(np.complex64(vmat[0, 0])) * zs[0]
            + complex(np.complex64(vmat[0, 1])) * zs[1]).real
     f_h = (complex(np.complex64(vmat[1, 0])) * zs[0]
            + complex(np.complex64(vmat[1, 1])) * zs[1]).real
 
-    err = tau - p_h[:-1]
-    f_new = c1 + f_h[:-1] + bf * err                 # pre-clamp freq[n+1]
+    err = tau - p_h[..., :-1]
+    f_new = c1[..., None] + f_h[..., :-1] + bf * err  # pre-clamp freq[n+1]
 
-    # guards: the linear solution is exact iff these hold
+    # guards, row by row: the linear solution is exact iff these hold
     margin = float(np.float32(np.pi * (15.0 / 16.0)))
-    valid = ((err.abs().max() < margin)
-             & (f_new.max() <= float(np.float32(fmax)))
-             & (f_new.min() >= float(np.float32(fmin)))
-             & (tau.abs().max() < 512.0))
+    valid = ((err.abs().amax(-1) < margin)
+             & (f_new.amax(-1) <= float(np.float32(fmax)))
+             & (f_new.amin(-1) >= float(np.float32(fmin)))
+             & (tau.abs().amax(-1) < 512.0))
 
     # outputs: unit phasors times small rotations
-    s_cum = torch.cat([err.new_zeros(1), torch.cumsum(err, 0)])
+    s_cum = torch.cat([err.new_zeros(lead + (1,)), torch.cumsum(err, -1)],
+                      -1)
     small = -float(mult) * err + float(alpha * np.float32(1 - mult)) \
-        * s_cum[:-1]
-    base = _rot(m0 - float(mult) * p0)
+        * s_cum[..., :-1]
+    base = _rot(m0 - float(mult) * p0)[..., None]
     out = base * _phasor_pow(xhat, mult) * _rot(small)
 
     # final state by phasor composition (no large phases)
-    dl = f_new[-1] + float(alpha - np.float32(1.0)) * err[-1]
-    vco_next = xhat[-1] * _rot(dl)
-    dm = float(mult) * f_new[-1] + af * err[-1]
-    osc_next = out[-1] * _rot(dm)
+    dl = f_new[..., -1] + float(alpha - np.float32(1.0)) * err[..., -1]
+    vco_next = xhat[..., -1] * _rot(dl)
+    dm = float(mult) * f_new[..., -1] + af * err[..., -1]
+    osc_next = out[..., -1] * _rot(dm)
     new_state = (torch.atan2(vco_next.imag, vco_next.real),
                  torch.atan2(osc_next.imag, osc_next.real),
-                 torch.clamp(f_new[-1], float(np.float32(fmin)),
+                 torch.clamp(f_new[..., -1], float(np.float32(fmin)),
                              float(np.float32(fmax))))
     return valid, new_state, out.to(c64), err
 
 
+def _host(t: torch.Tensor) -> list:
+    """One device-to-host read of a small tensor (counted)."""
+    pll_hybrid.host_reads += 1
+    return t.reshape(-1).tolist()
+
+
 def pll_hybrid(x, state, alpha, beta, fmin, fmax, mult: int, sequential,
-               allow_overlap: bool = True, tiers: dict | None = None):
-    """Three-tier PLL dispatch over x complex64 [N]:
+               allow_overlap: bool = True, row_tiers: list | None = None):
+    """Three-tier PLL dispatch over x complex64 [N], or a bank [C, N] with
+    state leaves [C], row by row:
 
-    1. the full-chunk LINEAR solution when the loop is locked;
-    2. the OVERLAP-AND-DISCARD batched scan otherwise, where it plans for
-       the chunk and the chunk looks coherent (ops/pll_overlap.py);
+    1. the full-chunk LINEAR solution for the rows where the loop is
+       locked;
+    2. the OVERLAP-AND-DISCARD batched scan for the other rows, where it
+       plans for the chunk and the row looks coherent
+       (ops/pll_overlap.py), as one launch on those rows;
     3. the exact sequential kernel ``sequential(state, x) -> (state',
-       (out, err))`` (K3) when neither holds.
+       (out, err))`` (K3) on every row still unsolved, as one call on
+       those rows (x [R, N], state leaves [R]; [N] and scalars for a
+       single stream).
 
-    The linear tier always runs; each later tier runs only when the one
-    before it failed, decided on the host.  ``allow_overlap=False``
-    (PLLBlock(exact=True)) skips tier 2.  ``tiers``, when given, maps each
-    tier's number (1, 2, 3) to the chunks it produced and is counted up.
-    Returns (state', (out, err))."""
+    The linear tier always runs; each later tier runs only on the rows
+    the one before it left, chosen on the host from one read of the
+    linear guards and the coherence gates together and, if the overlap
+    tier ran, one read of its flags: at most two reads a chunk whatever C
+    is (``pll_hybrid.host_reads`` counts them).  Rows are gathered with
+    ``index_select`` and scattered back.  ``allow_overlap=False``
+    (PLLBlock(exact=True)) skips tier 2.  ``row_tiers``, when given, is
+    filled with the tier (1, 2 or 3) each row took.  Returns (state',
+    (out, err))."""
     from luaradio_tpu_torch.ops.pll_overlap import (plan_overlap,
                                                     pll_overlap_discard)
 
-    def taken(tier, result):
-        if tiers is not None:
-            tiers[tier] = tiers.get(tier, 0) + 1
-        return result
+    def taken(tier, sel):
+        for r in sel:
+            took[r] = tier
 
-    valid, lin_state, lin_out, lin_err = pll_linear(
-        x, state, alpha, beta, fmin, fmax, mult)
-    if bool(valid):
-        return taken(1, (lin_state, (lin_out, lin_err)))
+    one = x.dim() == 1
+    xb = x[None] if one else x
+    rows = xb.shape[0]
+    dev = x.device
+    valid, st, out, err = pll_linear(xb, state, alpha, beta, fmin, fmax,
+                                     mult)
     plan = plan_overlap(x.shape[-1], float(alpha)) if allow_overlap else None
     if plan is not None:
         # coherence gate: on carrier-free noise the warm-up never
         # converges, so the batched scan would be wasted ahead of the
         # sequential kernel; the lag-1 autocorrelation says whether there
-        # is a carrier to track
-        c = (x[1:] * x[:-1].conj()).sum()
-        p = (x.real ** 2 + x.imag ** 2).sum()
-        if bool(c.abs() > 0.05 * torch.clamp(p, min=1e-30)):
-            ok, b_state, b_out, b_err = pll_overlap_discard(
-                x, state, alpha, beta, fmin, fmax, mult, *plan)
-            if bool(ok):
-                return taken(2, (b_state, (b_out, b_err)))
-    return taken(3, sequential(state, x))
+        # is a carrier to track.  Read with the guards.
+        c = (xb[:, 1:] * xb[:, :-1].conj()).sum(-1)
+        p = (xb.real ** 2 + xb.imag ** 2).sum(-1)
+        coherent = c.abs() > 0.05 * torch.clamp(p, min=1e-30)
+        flags = _host(torch.stack([valid, coherent]))
+        lin, gate = flags[:rows], flags[rows:]
+    else:
+        lin, gate = _host(valid), [False] * rows
+    todo = [r for r in range(rows) if not lin[r]]
+    took = [0] * rows
+    taken(1, [r for r in range(rows) if lin[r]])
+    if todo:
+        st = [v.clone() for v in st]
+        out, err = out.clone(), err.clone()
+
+    def solve(sel, r_state, r_out, r_err):
+        idx = torch.tensor(sel, dtype=torch.long, device=dev)
+        for leaf, v in zip(st, r_state):
+            leaf.index_copy_(0, idx, torch.as_tensor(v).to(leaf.dtype)
+                             .reshape(-1))
+        out.index_copy_(0, idx, r_out.reshape(len(sel), -1))
+        err.index_copy_(0, idx, r_err.reshape(len(sel), -1))
+
+    def gather(sel):
+        idx = torch.tensor(sel, dtype=torch.long, device=dev)
+        xs = xb.index_select(0, idx)
+        ss = tuple(torch.as_tensor(v, dtype=torch.float32, device=dev)
+                   .expand(rows).index_select(0, idx) for v in state)
+        if one:
+            return xs[0], tuple(v[0] for v in ss)
+        return xs, ss
+
+    scan_rows = [r for r in todo if gate[r]]
+    if scan_rows:
+        xs, ss = gather(scan_rows)
+        ok, b_state, b_out, b_err = pll_overlap_discard(
+            xs, ss, alpha, beta, fmin, fmax, mult, *plan)
+        ok = _host(ok)
+        good = [r for r, g in zip(scan_rows, ok) if g]
+        if good:
+            keep = torch.tensor([i for i, g in enumerate(ok) if g],
+                                dtype=torch.long, device=dev)
+            pick = (lambda t: t.reshape(len(scan_rows), -1)
+                    .index_select(0, keep))
+            solve(good, [pick(v) for v in b_state], pick(b_out),
+                  pick(b_err))
+        taken(2, good)
+        todo = [r for r in todo if r not in set(good)]
+    if todo:
+        xs, ss = gather(todo)
+        s_state, (s_out, s_err) = sequential(ss, xs)
+        solve(todo, s_state, s_out, s_err)
+        taken(3, todo)
+    if row_tiers is not None:
+        row_tiers[:] = took
+    if one:
+        return tuple(v[0] for v in st), (out[0], err[0])
+    return tuple(st), (out, err)
+
+
+pll_hybrid.host_reads = 0
 
 
 __all__ = ["pll_linear", "pll_hybrid"]

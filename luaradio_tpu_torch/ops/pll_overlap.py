@@ -17,8 +17,11 @@ The scan runs as one CUDA kernel launch for CUDA tensors (csrc/
 pll_overlap.cu, one thread per segment; the port's own kernel for the JAX
 package's lax.scan) and as its plain twin, a Python loop over the steps of
 [S]-wide tensors, for CPU tensors; any other device raises.  The set-up,
-the boundary check and the chaining are torch on both paths.
-``pll_overlap_discard.launches`` counts kernel launches.
+the boundary check and the chaining are torch on both paths.  A bank of
+C rows [C, N] runs all its C x S segments in one launch, and the boundary
+check, the chaining and ``valid`` are per row.
+``pll_overlap_discard.launches`` counts kernel launches and
+``pll_overlap_discard.rows`` the rows they carried.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib():
     lib = cudabuild.load("pll_overlap")
     if not lib.lr_pll_overlap_scan.argtypes:
-        lib.lr_pll_overlap_scan.argtypes = [_VP, _I, _I, _I, _VP] + \
+        lib.lr_pll_overlap_scan.argtypes = [_VP, _I, _I, _I, _I, _VP] + \
             [_F] * 5 + [_VP] * 6
         lib.lr_pll_overlap_scan.restype = ctypes.c_int
         lib.lr_overlap_chain_probe.argtypes = [_I] + [_F] * 4 + [_VP] * 3
@@ -66,6 +69,19 @@ def plan_overlap(n: int, alpha: float, decay: float = 12.0,
     return lseg, min(w, lseg)
 
 
+def _cumprod(z: torch.Tensor) -> torch.Tensor:
+    """Inclusive product along the last axis by doubling (Hillis-Steele):
+    elementwise products only, so each row of a bank rounds as it does
+    alone.  torch.cumprod on the card picks its scan algorithm by the
+    tensor's shape, which moved a bank row's chained outputs by ~2e-7
+    against its one-row call."""
+    d, n = 1, z.shape[-1]
+    while d < n:
+        z = torch.cat([z[..., :d], z[..., d:] * z[..., :-d]], dim=-1)
+        d *= 2
+    return z
+
+
 def _unit(z: torch.Tensor) -> torch.Tensor:
     mag = z.abs()
     return torch.where(mag > 0, z / torch.clamp(mag, min=1e-30),
@@ -73,39 +89,45 @@ def _unit(z: torch.Tensor) -> torch.Tensor:
 
 
 def _initial_states(x, state, s: int, lseg: int, warm: int):
-    """[5, S] float32 (vr, vi, mr, mi, fr): segment 0 takes the true
-    carry; the others guess the VCO on the phase of their first warm-up
-    sample, x[s*L - W], and take the carried frequency."""
+    """[5, C*S] float32 (vr, vi, mr, mi, fr), column c*S + s for row c's
+    segment s: segment 0 takes the row's true carry; the others guess the
+    VCO on the phase of their first warm-up sample, x[c, s*L - W], and take
+    the carried frequency."""
     f32 = torch.float32
     dev = x.device
-    p0, m0, f0 = (torch.as_tensor(v, dtype=f32, device=dev) for v in state)
-    fhat = _unit(torch.cat([x.new_zeros(1), x[lseg - warm::lseg][:s - 1]]))
+    rows = x.shape[0]
+    p0, m0, f0 = (torch.as_tensor(v, dtype=f32, device=dev).expand(rows)
+                  [:, None] for v in state)
+    fhat = _unit(torch.cat([x.new_zeros(rows, 1),
+                            x[:, lseg - warm::lseg][:, :s - 1]], dim=1))
     is0 = torch.arange(s, device=dev) == 0
-    one = torch.ones(s, dtype=f32, device=dev)
-    return torch.stack([torch.where(is0, torch.cos(p0), fhat.real),
+    one = torch.ones(rows, s, dtype=f32, device=dev)
+    init = torch.stack([torch.where(is0, torch.cos(p0), fhat.real),
                         torch.where(is0, torch.sin(p0), fhat.imag),
                         torch.where(is0, torch.cos(m0), one),
                         torch.where(is0, torch.sin(m0), 0 * one),
-                        f0.expand(s)]).contiguous()
+                        f0.expand(rows, s)])
+    return init.reshape(5, rows * s).contiguous()
 
 
 def _scan_reference(x, init, consts, lseg: int, warm: int):
     """The batched scan in plain PyTorch, one Python step at a time over
-    [S]-wide tensors.  Returns o_r, o_i, o_e [L, S], the state entering
-    step W and the exit state, each [5, S]."""
+    [C*S]-wide tensors.  Returns o_r, o_i, o_e [L, C*S], the state
+    entering step W and the exit state, each [5, C*S]."""
     alpha, beta, fmin, fmax, multf = consts
-    s = init.shape[1]
+    rows, n = x.shape
+    s = n // lseg
     f32 = torch.float32
-    # per-segment inputs [S, W+L]: W samples of the left neighbour's tail
+    # per-segment inputs [C*S, W+L]: W samples of the left neighbour's tail
     # (zeros for segment 0, whose warm-up is masked off anyway)
-    xpad = torch.cat([x.new_zeros(warm), x])[:s * lseg]
-    seg = torch.cat([xpad.reshape(s, lseg)[:, :warm], x.reshape(s, lseg)],
-                    dim=1)
+    xpad = torch.cat([x.new_zeros(rows, warm), x], dim=1)[:, :s * lseg]
+    seg = torch.cat([xpad.reshape(rows, s, lseg)[..., :warm],
+                     x.reshape(rows, s, lseg)], dim=2).reshape(rows * s, -1)
     vr, vi, mr, mi, fr = init.unbind(0)
-    not0 = torch.arange(s, device=x.device) != 0
-    xr_all = seg.real.t().contiguous()                     # [W+L, S]
+    not0 = torch.arange(rows * s, device=x.device) % s != 0
+    xr_all = seg.real.t().contiguous()                     # [W+L, C*S]
     xi_all = seg.imag.t().contiguous()
-    o_r = torch.empty(lseg, s, dtype=f32, device=x.device)
+    o_r = torch.empty(lseg, rows * s, dtype=f32, device=x.device)
     o_i = torch.empty_like(o_r)
     o_e = torch.empty_like(o_r)
     for i in range(warm + lseg):
@@ -143,10 +165,11 @@ def _scan_reference(x, init, consts, lseg: int, warm: int):
 
 
 def _scan_kernel(x, init, consts, lseg: int, warm: int):
-    """The batched scan as one launch of csrc/pll_overlap.cu; returns as
-    :func:`_scan_reference`."""
-    s = init.shape[1]
-    o_r = torch.empty(lseg, s, dtype=torch.float32, device=x.device)
+    """The batched scan as one launch of csrc/pll_overlap.cu over every
+    segment of every row; returns as :func:`_scan_reference`."""
+    rows, n = x.shape
+    width = init.shape[1]
+    o_r = torch.empty(lseg, width, dtype=torch.float32, device=x.device)
     o_i = torch.empty_like(o_r)
     o_e = torch.empty_like(o_r)
     snap = torch.empty_like(init)
@@ -155,55 +178,64 @@ def _scan_kernel(x, init, consts, lseg: int, warm: int):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.lr_pll_overlap_scan(
-            x.data_ptr(), s, lseg, warm, init.data_ptr(), *consts,
-            o_r.data_ptr(), o_i.data_ptr(), o_e.data_ptr(), snap.data_ptr(),
-            fin.data_ptr(), stream)
+            x.data_ptr(), rows, n // lseg, lseg, warm, init.data_ptr(),
+            *consts, o_r.data_ptr(), o_i.data_ptr(), o_e.data_ptr(),
+            snap.data_ptr(), fin.data_ptr(), stream)
     cudabuild.check(lib, code, "pll_overlap_discard")
     pll_overlap_discard.launches += 1
+    pll_overlap_discard.rows += rows
     return o_r, o_i, o_e, snap, fin
 
 
 def _run(scan, x, state, alpha, beta, fmin, fmax, mult, lseg, warm,
          tol_phase, tol_freq):
-    if x.dim() != 1 or x.dtype != torch.complex64 or not x.is_contiguous():
-        raise ValueError(f"x: want contiguous complex64 [N], got {x.dtype} "
-                         f"{tuple(x.shape)}")
+    if x.dim() not in (1, 2) or x.dtype != torch.complex64 \
+            or not x.is_contiguous():
+        raise ValueError(f"x: want contiguous complex64 [N] or [C, N], got "
+                         f"{x.dtype} {tuple(x.shape)}")
     n = x.shape[-1]
     if n % lseg or n < 2 * lseg or not 0 <= warm <= lseg:
         raise ValueError(f"{n} samples do not split into segments of {lseg} "
                          f"after {warm} warm-up steps")
-    s = n // lseg
+    one = x.dim() == 1
+    xb = x[None] if one else x
+    rows, s = xb.shape[0], n // lseg
     dev = x.device
     # (alpha, beta, fmin, fmax, mult), each rounded to float32
     consts = tuple(float(np.float32(v))
                    for v in (alpha, beta, fmin, fmax, mult))
-    init = _initial_states(x, state, s, lseg, warm)
-    o_r, o_i, o_e, snap, fin = scan(x, init, consts, lseg, warm)
-    vr, vi, mr, mi, fr = fin.unbind(0)
-    svr, svi, smr, smi, sfr = snap.unbind(0)
+    init = _initial_states(xb, state, s, lseg, warm)
+    o_r, o_i, o_e, snap, fin = scan(xb, init, consts, lseg, warm)
+    vr, vi, mr, mi, fr = fin.reshape(5, rows, s).unbind(0)
+    svr, svi, smr, smi, sfr = snap.reshape(5, rows, s).unbind(0)
 
-    # boundary check: segment s-1's exit state against segment s's entry
-    # state after the warm-up, VCO phasor and frequency.  The multiplied
-    # oscillator is an open-loop integrator (pll.lua:158), so each segment
-    # has it up to a constant offset, chained below.
-    d_v = torch.atan2(vi[:-1] * svr[1:] - vr[:-1] * svi[1:],
-                      vr[:-1] * svr[1:] + vi[:-1] * svi[1:]).abs()
-    d_f = (fr[:-1] - sfr[1:]).abs()
-    valid = (d_v.max() < tol_phase) & (d_f.max() < tol_freq)
+    # boundary check, row by row: segment s-1's exit state against segment
+    # s's entry state after the warm-up, VCO phasor and frequency.  The
+    # multiplied oscillator is an open-loop integrator (pll.lua:158), so
+    # each segment has it up to a constant offset, chained below.
+    d_v = torch.atan2(vi[:, :-1] * svr[:, 1:] - vr[:, :-1] * svi[:, 1:],
+                      vr[:, :-1] * svr[:, 1:] + vi[:, :-1] * svi[:, 1:]).abs()
+    d_f = (fr[:, :-1] - sfr[:, 1:]).abs()
+    valid = (d_v.amax(dim=1) < tol_phase) & (d_f.amax(dim=1) < tol_freq)
 
     exit_m = torch.complex(mr, mi)
     snap_m = torch.complex(smr, smi)
-    ratio = torch.cat([torch.ones(1, dtype=torch.complex64, device=dev),
-                       exit_m[:-1] * snap_m[1:].conj()])
-    delta = torch.cumprod(ratio, dim=0)
+    ratio = torch.cat([torch.ones(rows, 1, dtype=torch.complex64,
+                                  device=dev),
+                       exit_m[:, :-1] * snap_m[:, 1:].conj()], dim=1)
+    delta = _cumprod(ratio)
     delta = delta / torch.clamp(delta.abs(), min=1e-30)
 
-    out = torch.complex(o_r, o_i) * delta[None, :]        # [L, S]
-    out = out.t().reshape(n).contiguous()
-    err = o_e.t().reshape(n).contiguous()
-    m_last = exit_m[-1] * delta[-1]
-    new_state = (torch.atan2(vi[-1], vr[-1]),
-                 torch.atan2(m_last.imag, m_last.real), fr[-1])
+    # [L, C*S] -> [C, S, L] -> [C, N]
+    out = torch.complex(o_r, o_i).reshape(lseg, rows, s) * delta[None]
+    out = out.permute(1, 2, 0).reshape(rows, n).contiguous()
+    err = o_e.reshape(lseg, rows, s).permute(1, 2, 0).reshape(rows, n) \
+        .contiguous()
+    m_last = exit_m[:, -1] * delta[:, -1]
+    new_state = (torch.atan2(vi[:, -1], vr[:, -1]),
+                 torch.atan2(m_last.imag, m_last.real), fr[:, -1])
+    if one:
+        return (valid[0], tuple(v[0] for v in new_state), out[0], err[0])
     return valid, new_state, out, err
 
 
@@ -212,21 +244,37 @@ def pll_overlap_discard_reference(x, state, alpha, beta, fmin, fmax, mult,
                                   tol_phase: float = 0.02,
                                   tol_freq: float = 0.005):
     """Plain twin of :func:`pll_overlap_discard`, on any device: the scan
-    as a Python loop over the W+L steps."""
-    return _run(_scan_reference, x, state, alpha, beta, fmin, fmax, mult,
-                lseg, warm, tol_phase, tol_freq)
+    as a Python loop over the W+L steps.  A bank [C, N] runs its rows one
+    after another, so each row is exactly what it gives alone (torch's
+    CPU kernels round a complex product differently in their vector and
+    scalar loops, so a batched set-up could move a row by an ulp)."""
+    if x.dim() != 2:
+        return _run(_scan_reference, x, state, alpha, beta, fmin, fmax,
+                    mult, lseg, warm, tol_phase, tol_freq)
+    rows = x.shape[0]
+    leaves = [torch.as_tensor(v, dtype=torch.float32, device=x.device)
+              .expand(rows) for v in state]
+    got = [_run(_scan_reference, x[c].contiguous(),
+                tuple(v[c] for v in leaves), alpha, beta, fmin, fmax, mult,
+                lseg, warm, tol_phase, tol_freq) for c in range(rows)]
+    return (torch.stack([g[0] for g in got]),
+            tuple(torch.stack(v) for v in zip(*(g[1] for g in got))),
+            torch.stack([g[2] for g in got]),
+            torch.stack([g[3] for g in got]))
 
 
 def pll_overlap_discard(x, state, alpha, beta, fmin, fmax, mult,
                         lseg: int, warm: int, tol_phase: float = 0.02,
                         tol_freq: float = 0.005):
     """Run the exact PLL recurrence over x complex64 [N] as S = N/L
-    concurrent segments.
+    concurrent segments; a bank x [C, N] runs its C x S segments in one
+    launch, each row on its own.
 
     Returns (valid, new_state, out [N] complex64, err [N] float32), with
     ``valid`` a bool tensor; when it is False the outputs are not to be
     trusted and the caller must use the sequential kernel.  ``state`` is
-    (phi_l, phi_m, freq)."""
+    (phi_l, phi_m, freq).  For a bank: valid [C], state leaves [C] (scalars
+    broadcast) and out, err [C, N]."""
     if x.device.type == "cpu":
         return pll_overlap_discard_reference(x, state, alpha, beta, fmin,
                                              fmax, mult, lseg, warm,
@@ -238,6 +286,7 @@ def pll_overlap_discard(x, state, alpha, beta, fmin, fmax, mult,
 
 
 pll_overlap_discard.launches = 0
+pll_overlap_discard.rows = 0
 
 
 def chain_probe(steps: int, device, alpha, beta, fmin,
