@@ -112,11 +112,36 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     carry their own message) through Tuner -> POCSAGReceiver with
     run(channels=8): each row decodes what it carries, the noise rows
     nothing;
-19. the kernels line and the final status line.
+19. blocks: every row of the reference block benchmark (bench_blocks.py
+    :150-310, a copy of its list) built from the port and timed through
+    the Runner at its chunk (2^22, its overrides), the two IIR rows and
+    the five back-to-back FFT FIRs also with optimize=False; the noise-fed
+    PLL row must launch K3 and the acquiring row the overlap scan, and
+    each block new in the slice (IIR of order 2 and 4, the FFT FIR's
+    three signatures, the FM, PAM and QAM modulators, the squelch,
+    interleave, deinterleave, nop, the real and raw file sources) is held
+    against the same graph on the CPU; each PLL row's first K3 launch and
+    first overlap scan, recorded on the row's 2^22-sample inputs, against
+    their twins;
+20. fir-fft: fir_fft and the direct cuDNN FIR timed for a 129-tap real
+    FIR on [64, 65 536] and [1, 2^22];
+21. roundtrip: the FM self test module on the card (tone within 50 Hz),
+    its demodulator under the K2 rule (K2 launches, its twin on the first
+    chunk, the audio within 2e-5 * scale of the default); the SSB
+    modulator module on a 1.2 kHz WAV, usb and lsb, into rx_ssb usb
+    through the CLI (usb passes the tone, lsb keeps < 1/20 of its power);
+    real, raw, WAV and JSON files through the new sources and sinks;
+22. eager: the README graph in eager mode writes the fused run's WAV byte
+    for byte, and Runner(trace=True) records the four span names;
+23. newton: pll_newton_scan with K3 as its fallback on a phase-step input
+    (some segments converge, some fall back): K3 launches and the result
+    equals the same call with K3's twin within 1e-5;
+24. the kernels line and the final status line.
 
 Launch counts are zeroed just before the flagship, the K2 graph run, the
 stereo CLI run, the overlap path run, the rx_am --synchronous run, the
-rx_rds run, the bank-mono K2 run and the two bank-stereo runs and read
+rx_rds run, the bank-mono K2 run, the two bank-stereo runs, each block
+row, the FM round trip under the K2 rule and the newton call, and read
 just after: each kernel must have run on its path.  Any failure
 raises (non-zero exit); a hang ends the run with a traceback after 480 s.
 ``--profile PATH`` also writes a torch.profiler table of one mono graph
@@ -153,12 +178,14 @@ from luaradio_tpu_torch import (VARICODE, BankSource, BenchmarkSink,
                                 RootRaisedCosineFilterBlock, SinkBlock,
                                 TunerBlock, UniformRandomSource, WAVFileSink,
                                 WBFMMonoDemodulator, WBFMStereoDemodulator)
+import luaradio_tpu_torch as lr
 from luaradio_tpu_torch import cli
 from luaradio_tpu_torch.blocks.protocol import ax25 as ax25_proto
 from luaradio_tpu_torch.blocks.protocol import ert as ert_proto
 from luaradio_tpu_torch.blocks.protocol import pocsag as pocsag_proto
 from luaradio_tpu_torch.blocks.protocol import rds as rds_proto
 from luaradio_tpu_torch.blocks.signal import carrier
+from luaradio_tpu_torch.core.composite import PortRef
 from luaradio_tpu_torch.core.runtime import Runner
 from luaradio_tpu_torch.ops import cudabuild, pll, pll_overlap, wbfm
 from luaradio_tpu_torch.ops.complexutil import (complex_to_wire,
@@ -174,8 +201,8 @@ from luaradio_tpu_torch.utils import format as format_utils
 
 T0 = time.monotonic()
 #: a hang ends the run with a traceback after this many seconds; a whole
-#: run, build included, takes about a minute and a half on the card
-#: (two and a half with --profile)
+#: run, build included, takes about two minutes on the card (three with
+#: --profile)
 HANG_S = 480
 #: H100 SXM data sheet: HBM rate, and fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -223,6 +250,22 @@ ST_SCAN_CHUNK = 65536
 ST_STATIONS = (2, 9, 17, 25, 33, 41, 49, 57)
 BATCH_ROWS = (1, 8, 64, 132, 264)
 CLASS_CHUNK, CLASS_CHUNKS = 1 << 17, 4
+#: the blocks phase: bench_blocks.py's chunk and its overrides (the rows
+#: whose chunk at 2^22 is over in microseconds), its file sources'
+#: samples, the seconds each row is timed; the chunk and chunks over
+#: which each new block is held against the CPU (the FM modulator at its
+#: CPU test's 8192: a float32 cumsum's rounding grows with the chunk);
+#: the newton phase's samples
+BLOCK_CHUNK, BLOCK_FILE, ROW_S = 1 << 22, 4 << 20, 0.3
+BLOCK_OVERRIDES = {
+    "Null Source (Complex)": 1 << 24, "Null Source (Real)": 1 << 24,
+    "Downsampler (M = 5), Complex": 5 << 22,
+    "Downsampler (M = 5), Real": 5 << 22,
+    "Zero Crossing Clock Recovery": 1 << 23,
+    "Upsampler (L = 3), Complex": 1 << 23, "Upsampler (L = 3), Real": 1 << 23,
+}
+HOLD_CHUNK, HOLD_CHUNKS = 1 << 18, 2
+NEWTON_N = 1 << 16
 
 
 def log(phase: str, msg: str):
@@ -1874,12 +1917,12 @@ def phase_digital_others(tmp, dev):
 
 
 class _ArraySource(HostSourceBlock):
-    """Complex samples from a host array, ``n`` at a time."""
+    """Samples of type ``t`` from a host array, ``n`` at a time."""
 
-    def __init__(self, data, rate):
+    def __init__(self, data, rate, t=ComplexFloat32):
         super().__init__()
         self.data, self.rate, self.pos = data, rate, 0
-        self.add_type_signature([], [Output("out", ComplexFloat32)])
+        self.add_type_signature([], [Output("out", t)])
 
     def read(self, n):
         if self.pos >= len(self.data):
@@ -1893,15 +1936,17 @@ def _rows(sink):
     return np.concatenate(sink.got, axis=-1)
 
 
-def _record(module, name, calls):
+def _record(module, name, calls, keep=None):
     """Put a wrapper in place of ``module.name``, a kernel's private
     launch function (every call launches; the wrappers that count
     launches call it through the module), which appends (inputs,
-    outputs) of every call, cloned; returns a function that puts the
-    original back."""
+    outputs) of every call, cloned, or of the first ``keep`` calls;
+    returns a function that puts the original back."""
     fn = getattr(module, name)
 
     def recording(*args):
+        if keep is not None and len(calls) >= keep:
+            return fn(*args)
         ins = tuple(a.clone() if isinstance(a, torch.Tensor) else a
                     for a in args)
         out = fn(*args)
@@ -2578,6 +2623,759 @@ def phase_bank_host(tmp, dev):
     return 8 * RATE / dt
 
 
+# -- this slice: the rest of the signal blocks, file I/O, eager mode -------
+
+def block_rows(tmp):
+    """The rows of bench_blocks.py:150-310 (the reference's published block
+    benchmark, BASELINE.md's table), built from the port: a copy, since
+    that script imports the JAX package.  Each row is (name, the
+    reference's rate on an i5-4570T in M samples/s or None, build() ->
+    (top, block under test), optimize); the two IIR rows and the five
+    back-to-back FFT FIRs also run with optimize=False (the optimizer
+    folds the decaying IIR into an FIR and the five FIRs into one)."""
+    rng = np.random.default_rng(12345)
+    c64, f32, rate = lr.ComplexFloat32, lr.Float32, 1e6
+
+    def rand_c():
+        return lr.UniformRandomSource(c64, rate)
+
+    def rand_f():
+        return lr.UniformRandomSource(f32, rate)
+
+    def simple(mk_src, mk_blk):
+        def build():
+            top, blk = CompositeBlock(), mk_blk()
+            top.connect(mk_src(), blk, BenchmarkSink(report_period=1e9))
+            return top, blk
+        return build
+
+    def two_in(mk_src, mk_blk, names=("in1", "in2")):
+        def build():
+            top, blk = CompositeBlock(), mk_blk()
+            top.connect(mk_src(), "out", blk, names[0])
+            top.connect(mk_src(), "out", blk, names[1])
+            top.connect(blk, BenchmarkSink(report_period=1e9))
+            return top, blk
+        return build
+
+    def pll_acquire():
+        top, blk = CompositeBlock(), lr.PLLBlock(1e3, 200e3, 220e3)
+        add, scale = lr.AddBlock(), lr.MultiplyConstantBlock(0.8)
+        top.connect(lr.SignalSource("exponential", 210e3, rate), "out", add,
+                    "in1")
+        top.connect(rand_c(), scale)
+        top.connect(scale, "out", add, "in2")
+        top.connect(add, blk, BenchmarkSink(report_period=1e9))
+        return top, blk
+
+    taps16 = rng.standard_normal(16).astype(np.float32)
+    taps128 = rng.standard_normal(128).astype(np.float32)
+    taps256 = rng.standard_normal(256).astype(np.float32)
+    taps16c = (rng.standard_normal(16) + 1j * rng.standard_normal(16)
+               ).astype(np.complex64)
+    taps128c = (rng.standard_normal(128) + 1j * rng.standard_normal(128)
+                ).astype(np.complex64)
+
+    def five_fir():
+        top = CompositeBlock()
+        blocks = [lr.FIRFilterBlock(taps256, use_fft=True) for _ in range(5)]
+        top.connect(rand_c(), *blocks, BenchmarkSink(report_period=1e9))
+        return top, blocks[-1]
+
+    def nop(mk_src):
+        return simple(mk_src, lr.NopBlock)
+
+    iir = (lambda: lr.IIRFilterBlock(np.float32([0.2] * 5),
+                                     np.float32([1.0, 0.1, 0.05])))
+    five = "Five Back to Back FIR Filters (FFT, 256 Real taps, Complex input)"
+    rows = [
+        (five, 42.6, five_fir, True),
+        (five + ", optimize off", 42.6, five_fir, False),
+        ("Null Source (Complex)", 1357.3, nop(lambda: lr.NullSource(c64,
+                                                                    rate)),
+         True),
+        ("Null Source (Real)", 2941.9, nop(lambda: lr.NullSource(f32, rate)),
+         True),
+        ("Uniform Random Source (Complex)", 93.8, nop(rand_c), True),
+        ("Uniform Random Source (Real)", 176.2, nop(rand_f), True),
+        ("Signal Source (Complex Exponential)", 43.5, nop(
+            lambda: lr.SignalSource("exponential", 200e3, rate)), True),
+        ("Signal Source (Cosine)", 80.6, nop(
+            lambda: lr.SignalSource("cosine", 200e3, rate)), True),
+        ("Signal Source (Square)", 97.1, nop(
+            lambda: lr.SignalSource("square", 200e3, rate)), True),
+        ("FIR Filter (16 Real taps, Complex input)", 67.5, simple(
+            rand_c, lambda: lr.FIRFilterBlock(taps16, use_fft=False)), True),
+        ("FIR Filter (16 Real taps, Real input)", 84.7, simple(
+            rand_f, lambda: lr.FIRFilterBlock(taps16, use_fft=False)), True),
+        ("FIR Filter (16 Complex taps, Complex input)", 58.9, simple(
+            rand_c, lambda: lr.FIRFilterBlock(taps16c, use_fft=False)),
+         True),
+        ("FIR Filter (FFT, 128 Real taps, Complex input)", 133.9, simple(
+            rand_c, lambda: lr.FIRFilterBlock(taps128, use_fft=True)), True),
+        ("FIR Filter (FFT, 128 Real taps, Real input)", 141.5, simple(
+            rand_f, lambda: lr.FIRFilterBlock(taps128, use_fft=True)), True),
+        ("FIR Filter (FFT, 128 Complex taps, Complex input)", 132.7, simple(
+            rand_c, lambda: lr.FIRFilterBlock(taps128c, use_fft=True)),
+         True),
+        ("IIR Filter (5 ff 3 fb Real taps, Complex input)", 52.2,
+         simple(rand_c, iir), True),
+        ("IIR Filter (5 ff 3 fb Real taps, Complex input), optimize off",
+         52.2, simple(rand_c, iir), False),
+        ("IIR Filter (5 ff 3 fb Real taps, Real input)", 98.9,
+         simple(rand_f, iir), True),
+        ("IIR Filter (5 ff 3 fb Real taps, Real input), optimize off", 98.9,
+         simple(rand_f, iir), False),
+        ("FM Deemphasis Filter", 139.9, simple(
+            rand_f, lambda: lr.FMDeemphasisFilterBlock(75e-6)), True),
+        ("Downsampler (M = 5), Complex", 144.1, simple(
+            rand_c, lambda: DownsamplerBlock(5)), True),
+        ("Downsampler (M = 5), Real", 253.1, simple(
+            rand_f, lambda: DownsamplerBlock(5)), True),
+        ("Upsampler (L = 3), Complex", 702.6, simple(
+            rand_c, lambda: lr.UpsamplerBlock(3)), True),
+        ("Upsampler (L = 3), Real", 1259.6, simple(
+            rand_f, lambda: lr.UpsamplerBlock(3)), True),
+        ("Frequency Translator", 396.7, simple(
+            rand_c, lambda: lr.FrequencyTranslatorBlock(200e3)), True),
+        ("Hilbert Transform (65 taps)", 67.7, simple(
+            rand_f, lambda: HilbertTransformBlock(65)), True),
+        ("Hilbert Transform (129 taps)", 47.5, simple(
+            rand_f, lambda: HilbertTransformBlock(129)), True),
+        ("Frequency Discriminator", 111.6, simple(
+            rand_c, lambda: FrequencyDiscriminatorBlock(1.25)), True),
+        ("PLL", 5.5, simple(rand_c, lambda: lr.PLLBlock(1e3, 200e3, 220e3)),
+         True),
+        ("PLL (locked, tone input)", 5.5, simple(
+            lambda: lr.SignalSource("exponential", 210e3, rate),
+            lambda: lr.PLLBlock(1e3, 200e3, 220e3)), True),
+        ("PLL (acquiring, +3 dB tone in noise)", 5.5, pll_acquire, True),
+        ("Zero Crossing Clock Recovery", 72.0, simple(
+            rand_f, lambda: lr.ZeroCrossingClockRecoveryBlock(1200)), True),
+        ("Binary Phase Corrector", 54.8, simple(
+            rand_c, lambda: lr.BinaryPhaseCorrectorBlock(3000)), True),
+        ("Add (Complex)", 226.4, two_in(rand_c, lr.AddBlock), True),
+        ("Subtract (Complex)", 224.0, two_in(rand_c, lr.SubtractBlock),
+         True),
+        ("Multiply (Complex)", 280.6, two_in(rand_c, lr.MultiplyBlock), True),
+        ("Multiply (Real)", 608.6, two_in(rand_f, lr.MultiplyBlock), True),
+        ("Multiply Conjugate", 291.6, two_in(rand_c, MultiplyConjugateBlock),
+         True),
+        ("Multiply Constant (Real constant, Complex input)", 308.6, simple(
+            rand_c, lambda: lr.MultiplyConstantBlock(2.5)), True),
+        ("Multiply Constant (Complex constant, Complex input)", 254.5,
+         simple(rand_c, lambda: lr.MultiplyConstantBlock(2.5 + 1j)), True),
+        ("Multiply Constant (Real constant, Real input)", 570.7, simple(
+            rand_f, lambda: lr.MultiplyConstantBlock(2.5)), True),
+        ("Absolute Value", 647.5, simple(rand_f, lr.AbsoluteValueBlock),
+         True),
+        ("Complex Conjugate", 383.4, simple(rand_c, lr.ComplexConjugateBlock),
+         True),
+        ("Complex Magnitude", 297.4, simple(rand_c, lr.ComplexMagnitudeBlock),
+         True),
+        ("Complex Phase", 130.0, simple(rand_c, lr.ComplexPhaseBlock), True),
+        ("Delay (N = 3000, Complex input)", 473.4, simple(
+            rand_c, lambda: DelayBlock(3000)), True),
+        ("Bit Slicer", 92.6, simple(rand_f, lr.SlicerBlock), True),
+        ("Differential Decoder", 157.3, simple(
+            lambda: lr.UniformRandomSource(lr.Bit, rate),
+            lr.DifferentialDecoderBlock), True),
+        ("Complex to Real", 554.8, simple(rand_c, lr.ComplexToRealBlock),
+         True),
+        ("Complex to Imaginary", 555.6, simple(rand_c, lr.ComplexToImagBlock),
+         True),
+        ("Float to Complex", 397.7, two_in(rand_f, lr.FloatToComplexBlock,
+                                           ("real", "imag")), True),
+    ]
+    n = BLOCK_FILE
+    paths = {k: os.path.join(tmp, f"blocks.{k}") for k in ("iq", "f32",
+                                                            "u8")}
+    (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64).tofile(paths["iq"])
+    rng.standard_normal(n).astype(np.float32).tofile(paths["f32"])
+    rng.integers(0, 256, 2 * n).astype(np.uint8).tofile(paths["u8"])
+    files = [
+        ("IQ File Source (f32le)", 280.1, lambda: IQFileSource(
+            paths["iq"], "f32le", rate, repeat_on_eof=True, resident=False)),
+        ("Real File Source (f32le)", 506.4, lambda: lr.RealFileSource(
+            paths["f32"], "f32le", rate, repeat_on_eof=True,
+            resident=False)),
+        ("Raw File Source (float)", 1312.4, lambda: lr.RawFileSource(
+            paths["f32"], f32, rate, repeat_on_eof=True, resident=False)),
+        ("IQ File Source (u8, device-side conversion)", None,
+         lambda: IQFileSource(paths["u8"], "u8", rate, repeat_on_eof=True,
+                              resident=False)),
+        ("IQ File Source (f32le, HBM-resident loop)", None,
+         lambda: IQFileSource(paths["iq"], "f32le", rate,
+                              repeat_on_eof=True)),
+    ]
+    for i, (name, base, src) in enumerate(files):
+        rows.insert(2 + i, (name, base, nop(src), True))
+    return rows, paths
+
+
+def bench_row(build, chunk, optimize, dev):
+    """One row as bench_blocks.py's bench_one times it: source -> block ->
+    BenchmarkSink through the Runner, one warm-up chunk, then trials of k
+    chunks (k doubled while a trial takes under 50 ms) for about ROW_S
+    seconds, each ended by a synchronize; the best trial's samples/s at
+    the block's output (at the sink's input where the optimizer fused the
+    block away).  Returns (samples/s, chunks, the output's type name)."""
+    top, blk = build()
+    runner = Runner(top, chunk_size=chunk, optimize=optimize, device=dev)
+    g = runner.graph
+    if id(blk) in g.out_chunk:
+        n_out, typ = g.out_chunk[id(blk)], blk.get_output_type()
+    else:
+        sink = next(b for b in g.order if isinstance(b, BenchmarkSink))
+        src = g.edges[PortRef(sink, 0)]
+        n_out = g.out_chunk[id(src.block)]
+        typ = src.block.get_output_type(src.index)
+    try:
+        if not runner._pump_once():
+            raise AssertionError("blocks: EOF in the warm-up")
+        torch.cuda.synchronize()
+        best, timed, k, chunks = 0.0, 0.0, 1, 1
+        while timed < ROW_S:
+            t0 = time.monotonic()
+            for _ in range(k):
+                if not runner._pump_once():
+                    raise AssertionError("blocks: EOF in a trial")
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            timed += dt
+            chunks += k
+            best = max(best, k * n_out / dt)
+            if dt < 0.05:
+                k *= 2
+    finally:
+        runner._cleanup_once()
+    return best, chunks, typ.name
+
+
+def hold_graph(make, inputs, types_, device, chunk, optimize=True,
+               max_chunks=None, source=None):
+    """``make()`` fed by host arrays (or ``source()``), each output into a
+    host collector, run through the Runner on ``device``; the outputs."""
+    blk, top = make(), CompositeBlock()
+    srcs = ([source()] if source else
+            [_ArraySource(x, 1e6, t) for x, t in zip(inputs, types_)])
+    for src, port in zip(srcs, blk.inputs):
+        top.connect(src, "out", blk, port.name)
+    sinks = []
+    for port in blk.outputs:
+        sinks.append(_Collect())
+        top.connect(blk, port.name, sinks[-1], "in")
+    Runner(top, chunk_size=chunk, optimize=optimize, device=device).run(
+        max_chunks=max_chunks)
+    return [np.concatenate(s.got) for s in sinks]
+
+
+def hold_inputs(kind, n, rng):
+    """Host inputs of the holds: (arrays, their types)."""
+    c = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    if kind == "complex":
+        return [c], [ComplexFloat32]
+    if kind == "real":
+        return [c.real.copy()], [lr.Float32]
+    if kind == "bits":
+        return [rng.integers(0, 2, n).astype(np.uint8)], [lr.Bit]
+    if kind == "tone":      # the modulator's audio: a 1 kHz tone in noise
+        t = np.arange(n) / 1e6
+        return [(0.5 * np.cos(2 * np.pi * 1e3 * t) + 0.01 * c.real).astype(
+            np.float32)], [lr.Float32]
+    if kind == "bursts":    # the squelch: 0.01 and 1.0 in turns of 40 000
+        return [(c * np.where((np.arange(n) // 40000) % 2, 1.0, 0.01))
+                .astype(np.complex64)], [ComplexFloat32]
+    if kind == "complex2":
+        d = np.roll(c, 12345)
+        return [c, d], [ComplexFloat32, ComplexFloat32]
+    raise ValueError(kind)
+
+
+def phase_blocks(tmp, dev, smi):
+    """Every row of the reference block benchmark on the card (block_rows),
+    its launch counts zeroed before each row and read after: the noise-fed
+    PLL row must launch K3 (sequential tier: the coherence gate keeps the
+    scan off noise, as the JAX package's scan rejects it, bench_blocks.py
+    :211-213) and the acquiring row the overlap scan.  Then each block new
+    in this slice is held against the same graph with device="cpu" over
+    its first HOLD_CHUNKS chunks, fed the same host arrays, at the
+    tolerance of its CPU test (exact for the bit-driven and plumbing
+    blocks and the file sources).  The first K3 launch and the first
+    overlap scan of each PLL row are recorded on the row's own inputs
+    (its 2^22-sample chunks, at the scan's plan for them) and held
+    against their twins."""
+    from scipy.signal import cheby1
+    rows, paths = block_rows(tmp)
+    out = []
+    paths_launch = {}
+    pll_calls = []
+    for name, base, build, optimize in rows:
+        chunk = BLOCK_OVERRIDES.get(name, BLOCK_CHUNK)
+        k3_calls, scan_calls, restores = [], [], []
+        if name.startswith("PLL"):
+            restores = [_record(pll, "_launch", k3_calls, keep=1),
+                        _record(pll_overlap, "_run", scan_calls, keep=1)]
+        try:
+            pll.pll_phase.launches = 0
+            pll_overlap.pll_overlap_discard.launches = 0
+            sps, chunks, typ = bench_row(build, chunk, optimize, dev)
+            launches = {"K3": pll.pll_phase.launches,
+                        "scan": pll_overlap.pll_overlap_discard.launches}
+        finally:
+            for r in restores:
+                r()
+        pll_calls.append((name, k3_calls, scan_calls))
+        row = {"name": name, "msps": sps / 1e6, "baseline_i5_msps": base,
+               "chunk": chunk, "chunks": chunks, "dtype": typ,
+               "optimize": optimize}
+        row.update({k: v for k, v in launches.items() if v})
+        out.append(row)
+        vs = f", {sps / 1e6 / base:.1f}x the i5-4570T's {base} M" \
+            if base else ""
+        log("blocks", f"{name}: {sps / 1e6:.1f} M {typ} samples/s "
+                      f"({chunks} chunks of {chunk}{vs}); launches "
+                      f"{launches}")
+        if name == "PLL":
+            paths_launch["k3"] = launches["K3"]
+            if launches["K3"] == 0:
+                raise AssertionError("blocks: the noise-fed PLL row did "
+                                     "not launch K3")
+        if name.startswith("PLL (acquiring"):
+            paths_launch["scan"] = launches["scan"]
+            if launches["scan"] == 0:
+                raise AssertionError("blocks: the acquiring PLL row did "
+                                     "not launch the overlap scan")
+    log("blocks", json.dumps({"device": smi, "rows": out}))
+
+    rng = np.random.default_rng(99)
+    taps = np.random.default_rng(5).standard_normal(128)
+    iir = (lambda: lr.IIRFilterBlock([0.2] * 5, [1.0, 0.1, 0.05]))
+    holds = [
+        ("IIR 5 ff 3 fb, complex, optimize on", iir, "complex", 2e-5, True),
+        ("IIR 5 ff 3 fb, complex, optimize off", iir, "complex", 2e-5,
+         False),
+        ("IIR 5 ff 3 fb, real, optimize off", iir, "real", 2e-5, False),
+        ("IIR 4th-order Chebyshev I, real, optimize off",
+         lambda: lr.IIRFilterBlock(*cheby1(4, 1.0, 0.3)), "real", 2e-5,
+         False),
+        ("FIR FFT 128 real taps, complex input", lambda: lr.FIRFilterBlock(
+            taps.astype(np.float32), use_fft=True), "complex", 1e-3, True),
+        ("FIR FFT 128 real taps, real input", lambda: lr.FIRFilterBlock(
+            taps.astype(np.float32), use_fft=True), "real", 1e-3, True),
+        ("FIR FFT 128 complex taps, complex input",
+         lambda: lr.FIRFilterBlock((taps + 1j * taps[::-1]).astype(
+             np.complex64), use_fft=True), "complex", 1e-3, True),
+        ("FrequencyModulator", lambda: lr.FrequencyModulatorBlock(0.05),
+         "tone", 2e-5, True, 8192),
+        ("PulseAmplitudeModulator (4 levels)",
+         lambda: lr.PulseAmplitudeModulatorBlock(1e3, 8e3, 4), "bits", 0,
+         True),
+        ("QuadratureAmplitudeModulator (16 points)",
+         lambda: lr.QuadratureAmplitudeModulatorBlock(1e3, 8e3, 16), "bits",
+         0, True),
+        ("PowerSquelch", lambda: lr.PowerSquelchBlock(-20.0), "bursts", 1e-6,
+         True),
+        ("Interleave (2)", lambda: lr.InterleaveBlock(2), "complex2", 0,
+         True),
+        ("Deinterleave (2)", lambda: lr.DeinterleaveBlock(2), "complex", 0,
+         True),
+        ("Nop", lr.NopBlock, "complex", 0, True),
+    ]
+    held = []
+    for name, make, kind, tol, optimize, *chunk in holds:
+        chunk = chunk[0] if chunk else HOLD_CHUNK
+        xs, ts = hold_inputs(kind, chunk * HOLD_CHUNKS, rng)
+        got = hold_graph(make, xs, ts, dev, chunk, optimize)
+        exp = hold_graph(make, xs, ts, torch.device("cpu"), chunk, optimize)
+        held.append((name, hold_outputs(name, got, exp, tol), tol))
+    for name, src in (
+            ("Real File Source (f32le)", lambda: lr.RealFileSource(
+                paths["f32"], "f32le", 1e6, repeat_on_eof=True,
+                resident=False)),
+            ("Raw File Source (float)", lambda: lr.RawFileSource(
+                paths["f32"], lr.Float32, 1e6, repeat_on_eof=True,
+                resident=False)),
+            ("Real File Source (u8, device-side conversion)",
+             lambda: lr.RealFileSource(paths["u8"], "u8", 1e6,
+                                       repeat_on_eof=True, resident=False)),
+            ("Raw File Source (complex, resident ring)",
+             lambda: lr.RawFileSource(paths["iq"], ComplexFloat32, 1e6,
+                                      repeat_on_eof=True))):
+        got = hold_graph(lr.NopBlock, [], [], dev, 1 << 20,
+                         max_chunks=HOLD_CHUNKS, source=src)
+        exp = hold_graph(lr.NopBlock, [], [], torch.device("cpu"), 1 << 20,
+                         max_chunks=HOLD_CHUNKS, source=src)
+        held.append((name, hold_outputs(name, got, exp, 0), 0))
+    for name, err, tol in held:
+        log("blocks", f"{name}: card vs the same graph on the CPU over "
+                      f"{HOLD_CHUNKS} chunks: max |diff| {err:.3g} (limit "
+                      f"{tol:g} * scale)")
+
+    blk = carrier.PLLBlock(1e3, 200e3, 220e3)
+    blk.input_rate = 1e6
+    blk.initialize()
+    params = (blk._alpha, blk._beta, blk._freq_min, blk._freq_max)
+    k3_err = scan_err = 0.0
+    for name, k3_calls, scan_calls in pll_calls:
+        if k3_calls:
+            k3_err = max(k3_err, hold_k3_launch(name, k3_calls[0], params))
+        if scan_calls:
+            scan_err = max(scan_err, hold_scan_launch(name, scan_calls[0]))
+    return {"rows": out, "k3_launches": paths_launch["k3"],
+            "scan_launches": paths_launch["scan"], "k3_err": k3_err,
+            "scan_err": scan_err}
+
+
+def hold_k3_launch(row, call, params):
+    """A PLL row's first K3 launch, recorded (pll._launch(lib, x, state,
+    k) and its outputs), against pll_phase_reference on the same x and
+    state at the row's constants: out, err, phases and frequency within
+    1e-5 (0 expected, as compare_pll).  Returns the largest error."""
+    (_, x, state, k), got = call
+    if pll.constants(*params, 1.0) != k or x.dim() != 1:
+        raise AssertionError(f"blocks {row}: K3 launched on {tuple(x.shape)} "
+                             f"with constants {k}, not the row's")
+    t0 = time.monotonic()
+    exp = pll.pll_phase_reference(x, state, *params, 1.0)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    errs = pll_diff(f"{row} launch 0", got, exp)
+    if max(errs) > 1e-5:
+        raise AssertionError(f"blocks {row}: K3's first launch vs its twin "
+                             f"(out, err, phases, freq) {errs} > 1e-5")
+    log("blocks", f"{row}: K3's first launch [{x.shape[0]} samples] against "
+                  f"pll_phase_reference on its inputs: max |kernel - twin| "
+                  f"(out, err, phases, freq) {max(errs):.3g} (limit 1e-5); "
+                  f"twin {plain_s:.1f} s")
+    return max(errs)
+
+
+def hold_scan_launch(row, call):
+    """A PLL row's first overlap scan, recorded where pll_overlap_discard
+    runs it (pll_overlap._run(scan, x, state, alpha, beta, fmin, fmax,
+    mult, lseg, warm, tol_phase, tol_freq) and its outputs), against
+    pll_overlap_discard_reference on the same inputs and plan: valid
+    equal, out, err and state within 1e-6 (0 expected, as hold_overlap).
+    Returns the largest error."""
+    (scan, x, state, *rest), got = call
+    if scan is not pll_overlap._scan_kernel or x.dim() != 1:
+        raise AssertionError(f"blocks {row}: the recorded scan ran "
+                             f"{scan.__name__} on {tuple(x.shape)}")
+    lseg, warm = rest[5], rest[6]
+    t0 = time.monotonic()
+    exp = pll_overlap.pll_overlap_discard_reference(x, state, *rest)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    errs = [(got[2] - exp[2]).abs().max().item(),
+            (got[3] - exp[3]).abs().max().item(),
+            max(abs(float(a) - float(b)) for a, b in zip(got[1], exp[1]))]
+    if bool(got[0]) != bool(exp[0]) or max(errs) > 1e-6:
+        raise AssertionError(f"blocks {row}: the scan's first launch: valid "
+                             f"{bool(got[0])} vs {bool(exp[0])}, |kernel - "
+                             f"twin| (out, err, state) {errs} > 1e-6")
+    log("blocks", f"{row}: the overlap scan's first launch [{x.shape[0]} "
+                  f"samples, {x.shape[0] // lseg} segments of {lseg} after "
+                  f"{warm} warm-up steps] against "
+                  f"pll_overlap_discard_reference on its inputs: valid "
+                  f"{bool(got[0])} (twin {bool(exp[0])}); max |kernel - "
+                  f"twin| (out, err, state) {max(errs):.3g} (limit 1e-6); "
+                  f"twin {plain_s:.1f} s")
+    return max(errs)
+
+
+def hold_outputs(name, got, exp, tol):
+    """Card against CPU outputs: equal when ``tol`` is 0, else within
+    tol * max(1, max |CPU|).  Returns the largest difference."""
+    err = 0.0
+    for g, e in zip(got, exp):
+        if g.shape != e.shape or g.dtype != e.dtype:
+            raise AssertionError(f"blocks {name}: card {g.shape} {g.dtype} "
+                                 f"vs CPU {e.shape} {e.dtype}")
+        if not np.isfinite(g.astype(np.complex128)).all():
+            raise AssertionError(f"blocks {name}: non-finite output")
+        d = float(np.max(np.abs(g.astype(np.complex128) - e))) if g.size \
+            else 0.0
+        scale = max(1.0, float(np.max(np.abs(e)))) if e.size else 1.0
+        if (tol == 0 and d != 0) or d > tol * scale:
+            raise AssertionError(f"blocks {name}: |card - CPU| {d} > "
+                                 f"{tol} * {scale}")
+        err = max(err, d)
+    return err
+
+
+def phase_fir_fft(dev, gen, smi):
+    """fir_fft (overlap-save on cuFFT) and fir_direct (cuDNN conv1d, TF32
+    off) for a 129-tap real FIR on [64, 65 536] and [1, 2^22], each timed
+    with CUDA events (median of REPS launches), the two outputs held
+    within 1e-3 * scale of each other: data for the choice of FIR path,
+    not a default."""
+    from luaradio_tpu_torch.ops import fir as fir_ops
+    from luaradio_tpu_torch.utils.filter_design import firwin_lowpass
+    taps = firwin_lowpass(129, 0.2).astype(np.float32)
+    h = torch.from_numpy(taps).to(dev)
+    lf = fir_ops.fft_frame_length(len(taps))
+    h_freq = torch.from_numpy(fir_ops.fir_fft_freq_taps(taps, lf, True)).to(
+        dev)
+    out = {}
+    for rows, n in ((64, 65536), (1, 1 << 22)):
+        x = torch.randn((rows, n), generator=gen, device=dev)
+        tail_d = torch.zeros((rows, len(taps) - 1), device=dev)
+        tail_f = torch.zeros((rows, lf), device=dev)
+        yd, _ = fir_ops.fir_direct(x, h, tail_d)
+        yf, _ = fir_ops.fir_fft(x, h_freq, tail_f, True)
+        scale = max(1.0, yd.abs().max().item())
+        err = (yd - yf).abs().max().item()
+        if err > 1e-3 * scale:
+            raise AssertionError(f"fir-fft [{rows}, {n}]: |fft - direct| "
+                                 f"{err} > 1e-3 * {scale}")
+        fft_ms = median_ms(lambda: fir_ops.fir_fft(x, h_freq, tail_f, True))
+        direct_ms = median_ms(lambda: fir_ops.fir_direct(x, h, tail_d))
+        out[f"{rows}x{n}"] = {"fir_fft_ms": fft_ms,
+                              "fir_direct_ms": direct_ms, "max_abs_err": err}
+        log("fir-fft", f"129-tap real FIR on [{rows}, {n}] ({smi}): fir_fft "
+                       f"{fft_ms:.4f} ms, fir_direct (cuDNN) "
+                       f"{direct_ms:.4f} ms a launch (median of {REPS}); "
+                       f"|fft - direct| {err:.3g} (limit 1e-3 * "
+                       f"{scale:.3g})")
+    return out
+
+
+def wav_tone(path, rate, seconds, tone):
+    t = np.arange(int(rate * seconds)) / rate
+    pcm = np.round(0.5 * np.sin(2 * np.pi * tone * t) * 32767.5).astype(
+        np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+    return len(pcm)
+
+
+def phase_roundtrip(tmp, dev):
+    """The FM self test (luaradio_tpu_torch.examples.fm_roundtrip_selftest)
+    on the card: the tone within 50 Hz; its demodulator again under the K2
+    rule, where K2 must launch, match its twin on the path's first chunk
+    and give the default audio within 2e-5 * scale.  The SSB round trip of
+    BASELINE.json's third configuration: a WAV with a 1.2 kHz tone ->
+    examples.wavfile_ssb_modulator (usb, then lsb) -> IQ file -> rx_ssb
+    ... usb through the CLI: the usb capture passes the tone, the lsb one
+    keeps less than 1/20 of its power.  Then real, raw, WAV and JSON
+    files through the new sources and sinks, equal to what was
+    written."""
+    from luaradio_tpu_torch.examples import fm_roundtrip_selftest as fm
+    from luaradio_tpu_torch.examples import wavfile_ssb_modulator as ssb
+    t0 = time.monotonic()
+    peak, audio, sr = fm.run(tmp)
+    if abs(peak - fm.TONE_HZ) > fm.LIMIT_HZ:
+        raise AssertionError(f"roundtrip FM: peak at {peak} Hz")
+    log("roundtrip", f"FM self test: {len(audio)} audio samples at {sr} Hz, "
+                     f"peak {peak:.1f} Hz (want {fm.TONE_HZ:.0f} within "
+                     f"{fm.LIMIT_HZ:.0f}), {time.monotonic() - t0:.2f} s")
+    capture = os.path.join(tmp, "capture.iq")
+
+    def demodulate():
+        sink, top = _Collect(), CompositeBlock()
+        top.connect(IQFileSource(capture, "f32le", fm.RATE),
+                    *fm.mono_chain(), sink)
+        top.run()
+        return np.concatenate(sink.got)
+    default = demodulate()
+    calls = []
+    os.environ["LUARADIO_TPU_FORCE_WBFM_KERNEL"] = "1"
+    restore = _record(wbfm, "_launch_k2", calls)
+    try:
+        wbfm.disc_fir.launches = 0
+        k2_audio = demodulate()
+        launches = wbfm.disc_fir.launches
+    finally:
+        restore()
+        del os.environ["LUARADIO_TPU_FORCE_WBFM_KERNEL"]
+    scale = max(1.0, float(np.abs(default).max()))
+    diff = float(np.abs(k2_audio - default).max()) \
+        if k2_audio.shape == default.shape else np.inf
+    if launches == 0 or diff > 2e-5 * scale:
+        raise AssertionError(f"roundtrip K2: {launches} launches, audio off "
+                             f"the default by {diff}")
+    (carry, x, taps, d, inv_gain, _), _ = calls[0]
+    err = compare("disc_fir", lambda c, xx, h: wbfm.disc_fir(
+        c, xx, h, d, inv_gain), lambda c, xx, h: wbfm.disc_fir_reference(
+        c, xx, h, d, inv_gain), [("FM round trip chunk 0", x, carry)], taps)
+    log("roundtrip", f"FM demodulator under the K2 rule: {launches} K2 "
+                     f"launches ({tuple(x.shape)}, K {taps.shape[0]}, D "
+                     f"{d}); audio within {diff:.3g} of the default run's "
+                     f"(limit 2e-5 * {scale:.3g})")
+
+    wav = os.path.join(tmp, "tone.wav")
+    n = wav_tone(wav, 44100, ANALOG_S, SSB_TONE)
+    power = {}
+    for sb in ("usb", "lsb"):
+        iq, out = (os.path.join(tmp, f"ssb_{sb}.{e}") for e in ("iq", "wav"))
+        if ssb.main([wav, iq, "3000", sb]) != 0:
+            raise AssertionError(f"wavfile_ssb_modulator {sb} failed")
+        rc, dt = run_cli(["-a", "rx_ssb", "-i", f"iqfile:{iq},rate=44100",
+                          "-o", f"wavfile:{out}", "0", "usb"], dev)
+        pcm, _ = read_wav(out)
+        if rc != 0:
+            raise AssertionError(f"roundtrip rx_ssb ({sb} capture): rc {rc}")
+        power[sb] = float(np.mean(pcm[len(pcm) // 2:, 0].astype(
+            np.float64) ** 2))
+    f, m, _ = hold_audio("roundtrip SSB usb", os.path.join(
+        tmp, "ssb_usb.wav"), n, 44100, SSB_TONE)
+    if power["lsb"] * 20 >= power["usb"]:
+        raise AssertionError(f"roundtrip SSB: the lsb capture keeps "
+                             f"{power['lsb']:.3g} of {power['usb']:.3g}")
+    log("roundtrip", f"SSB: WAV {SSB_TONE:.0f} Hz tone -> "
+                     f"wavfile_ssb_modulator -> rx_ssb usb: tone at "
+                     f"{f:.1f} Hz, margin {m:.3g}; the lsb capture keeps "
+                     f"1/{power['usb'] / power['lsb']:.0f} of its power "
+                     f"(limit 1/20)")
+
+    # real, raw, WAV and JSON files through the new sources and sinks
+    def run(*blocks, **kw):
+        top = CompositeBlock()
+        top.connect(*blocks)
+        top.run(**kw)
+    p = {k: os.path.join(tmp, f"rt.{k}") for k in
+         ("a.f32", "b.f32", "a.raw", "b.raw", "a.wav", "a.json", "b.json")}
+    run(lr.SignalSource("cosine", 1e3, 48e3), lr.RealFileSink(p["a.f32"],
+                                                              "f32le"),
+        max_chunks=3, chunk_size=1 << 16)
+    run(lr.RealFileSource(p["a.f32"], "f32le", 48e3), lr.NopBlock(),
+        lr.RealFileSink(p["b.f32"], "f32le"), chunk_size=50000)
+    run(lr.SignalSource("exponential", 1e3, 48e3),
+        lr.RawFileSink(p["a.raw"]), max_chunks=3, chunk_size=1 << 16)
+    run(lr.RawFileSource(p["a.raw"], ComplexFloat32, 48e3), lr.NopBlock(),
+        lr.RawFileSink(p["b.raw"]), chunk_size=50000)
+    run(lr.SignalSource("cosine", 440.0, 44100.0, amplitude=0.5),
+        WAVFileSink(p["a.wav"], 1), max_chunks=2, chunk_size=44100)
+    sink = _Collect()
+    run(lr.WAVFileSource(p["a.wav"], 1), lr.NopBlock(), sink,
+        chunk_size=30000)
+    pcm, _ = read_wav(p["a.wav"])
+    objs = [{"i": i, "text": "x" * (i % 5)} for i in range(100)]
+    with open(p["a.json"], "w") as fh:
+        fh.write("".join(json.dumps(o) + "\n" for o in objs))
+    run(lr.JSONSource(p["a.json"], 1e3), lr.JSONSink(p["b.json"]),
+        chunk_size=7)
+    same = {
+        "real": open(p["a.f32"], "rb").read() == open(p["b.f32"],
+                                                      "rb").read(),
+        "raw": open(p["a.raw"], "rb").read() == open(p["b.raw"],
+                                                     "rb").read(),
+        "wav": np.array_equal(np.concatenate(sink.got),
+                              (pcm[:, 0] / np.float32(32767.5)).astype(
+                                  np.float32)),
+        "json": read_json_lines(p["b.json"]) == objs}
+    sizes = (os.path.getsize(p["a.f32"]), os.path.getsize(p["a.raw"]))
+    if not all(same.values()) or sizes != (3 * 4 << 16, 3 * 8 << 16):
+        raise AssertionError(f"roundtrip files: equal {same}, sizes {sizes}")
+    log("roundtrip", f"real (f32le), raw (complex), WAV (16 bit) and JSON "
+                     f"files through the new sources and sinks: equal to "
+                     f"what was written {same}")
+    return {"launches": launches, "max_abs_err": err, "audio_err": diff}
+
+
+def phase_eager(tmp, dev):
+    """The README mono graph in eager mode must write the fused run's WAV
+    byte for byte; Runner(trace=True) must record the four span names."""
+    paths, n = write_capture(tmp)
+    wavs = {m: os.path.join(tmp, f"{m}.wav") for m in ("fused", "eager")}
+    dt = {}
+    for mode in ("fused", "eager"):
+        t0 = time.monotonic()
+        readme_graph(paths["f32le"], "f32le", wavs[mode]).run(mode)
+        dt[mode] = time.monotonic() - t0
+    same = open(wavs["fused"], "rb").read() == open(wavs["eager"],
+                                                    "rb").read()
+    runner = Runner(readme_graph(paths["f32le"], "f32le",
+                                 os.path.join(tmp, "t.wav")), trace=True,
+                    device=dev)
+    runner.run()
+    rep = runner.tracer.report()
+    names = sorted(rep)
+    want = ("sources.read", "sources.wait", "segment[", "host[")
+    missing = [w for w in want if not any(k.startswith(w) for k in names)]
+    if not same or missing:
+        raise AssertionError(f"eager: WAV equal {same}; spans {names}, "
+                             f"missing {missing}")
+    spans = {k: f"{v['count']} x {v['mean_s'] * 1e3:.3f} ms"
+             for k, v in rep.items()}
+    log("eager", f"README graph, eager mode: WAV equal to the fused run's "
+                 f"byte for byte; fused {n / dt['fused'] / 1e6:.2f}, eager "
+                 f"{n / dt['eager'] / 1e6:.2f} M complex samples/s end to "
+                 f"end; trace spans (count x mean, host clock) {spans}")
+    return {"spans": names}
+
+
+def phase_newton(dev):
+    """pll_newton_scan with K3 as its sequential fallback on a phase-step
+    input (a tone at the bench PLL's 210 kHz with a 0.8 rad step every
+    eight segments and noise over three segments): some segments converge
+    and some fall back, K3 must launch, and the result must equal the
+    same call with K3's twin in K3's place within 1e-5."""
+    from luaradio_tpu_torch.ops.pll_linear import pll_newton_scan
+    blk = carrier.PLLBlock(1e3, 200e3, 220e3)
+    blk.input_rate = 1e6
+    blk.initialize()
+    params = (blk._alpha, blk._beta, blk._freq_min, blk._freq_max)
+    x = newton_input()
+    xd = torch.from_numpy(x).to(dev)
+    state = (0.0, 0.0, float(blk._freq_min + blk._freq_max) / 2)
+
+    def sequential(fn):
+        def run(st, xs):
+            s = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                             device=dev).reshape(())
+                             for v in st])
+            out, err, s2 = fn(xs.contiguous(), s, *params, 1)
+            return tuple(s2.unbind(-1)), (out, err)
+        return run
+    pll.pll_phase.launches = 0
+    before = list(pll_newton_scan.segments)
+    t0 = time.monotonic()
+    got = pll_newton_scan(xd, state, *params, 1, sequential(pll.pll_phase))
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = pll.pll_phase.launches
+    segs = [a - b for a, b in zip(pll_newton_scan.segments, before)]
+    exp = pll_newton_scan(xd, state, *params, 1,
+                          sequential(pll.pll_phase_reference))
+    torch.cuda.synchronize()
+    errs = [(got[1][0] - exp[1][0]).abs().max().item(),
+            wrap_err(got[1][1], exp[1][1], 2 * np.pi),
+            max(abs(float(a) - float(b)) for a, b in zip(got[0], exp[0]))]
+    if launches == 0 or segs[0] == 0 or segs[1] == 0 or max(errs) > 1e-5:
+        raise AssertionError(f"newton: K3 launches {launches}, segments "
+                             f"(newton, fallback) {segs}, |K3 - twin| "
+                             f"(out, err, state) {errs} > 1e-5")
+    log("newton", f"pll_newton_scan on {len(x)} samples: segments solved by "
+                  f"Newton / fallen back {segs[0]} / {segs[1]}, K3 "
+                  f"launches {launches}, |K3 - twin| (out, err, state) "
+                  f"{errs[0]:.3g} / {errs[1]:.3g} / {errs[2]:.3g} (limit "
+                  f"1e-5); {dt * 1e3:.1f} ms (host clock, one host read a "
+                  f"segment)")
+    return {"launches": launches, "max_abs_err": max(errs),
+            "segments": segs}
+
+
+def newton_input(n=NEWTON_N, seg=1024):
+    """The newton phase's input: a tone at 0.21 cycles a sample with a
+    0.8 rad phase step every 8 segments, 300 samples into the segment,
+    and noise over segments 5, 21 and 40."""
+    rng = np.random.default_rng(33)
+    t = np.arange(n)
+    x = np.exp(1j * (2 * np.pi * 0.21 * t
+                     + 0.8 * ((t + 8 * seg - 300) // (8 * seg))))
+    for s in (5, 21, 40):
+        x[s * seg:(s + 1) * seg] = (rng.standard_normal(seg)
+                                    + 1j * rng.standard_normal(seg))
+    return x.astype(np.complex64)
+
+
 def profile_run(run, out, what):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2698,6 +3496,25 @@ def main(argv):
                             "bank_host_sps": host_sps,
                             "classes_sps": {k: v["sps"]
                                             for k, v in classes.items()}}))
+    with tempfile.TemporaryDirectory() as tmp:
+        blocks = phase_blocks(tmp, dev, smi)
+    k3["blocks_path"] = {"launches": blocks["k3_launches"],
+                         "max_abs_err": blocks["k3_err"]}
+    k3["max_abs_err"] = max(k3["max_abs_err"], blocks["k3_err"])
+    overlap["blocks_path"] = {"launches": blocks["scan_launches"],
+                              "max_abs_err": blocks["scan_err"]}
+    overlap["max_abs_err"] = max(overlap["max_abs_err"], blocks["scan_err"])
+    fir_fft = phase_fir_fft(dev, gen, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        k2["roundtrip_path"] = phase_roundtrip(tmp, dev)
+    k2["max_abs_err"] = max(k2["max_abs_err"],
+                            k2["roundtrip_path"]["max_abs_err"])
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_eager(tmp, dev)
+    k3["newton_path"] = phase_newton(dev)
+    k3["max_abs_err"] = max(k3["max_abs_err"],
+                            k3["newton_path"]["max_abs_err"])
+    log("fir-fft", json.dumps({"device": smi, **fir_fft}))
     entries = [k1, k2, k3, overlap]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

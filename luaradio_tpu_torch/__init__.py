@@ -17,10 +17,20 @@ clock recovery, the masked Sampler, the designed and matched filters,
 the protocol framers and decoders), the IQ file source with its
 device-resident ring, the zero, signal and uniform random sources, the
 WAV/IQ/print/JSON/benchmark sinks, the graph optimizer, the runtime and
-the hand-fused flagship step.
+the hand-fused flagship step.  Beyond the receivers it has the rest of the
+signal blocks (IIR filters of any order, FFT overlap-save FIRs, the FM,
+PAM and QAM modulators, the power squelch, interleave, deinterleave, nop
+and throttle), the real, raw, WAV and JSON file sources, the real and raw
+file sinks, eager mode and the runtime's span tracer.
 """
 
 __version__ = "0.1.0"
+
+# the JAX package's version names (the reference's radio/init.lua:18-21):
+# the strings, the xxyyzz decimal number and an info table
+_VERSION = version = __version__
+version_number = 100
+version_info = {"major": 0, "minor": 1, "patch": 0}
 
 from luaradio_tpu_torch import types  # noqa: F401
 from luaradio_tpu_torch.blocks import *  # noqa: F401,F403

@@ -4,8 +4,8 @@ radio/applications/init.lua: :4-195 factory tables, :282-322
 "name:arg,opt=val,..." spec parsing, :324-419 dispatch).
 
 Only the sources and sinks the port has are listed: ``INPUTS`` holds
-``iqfile``; ``OUTPUTS`` holds ``wavfile``, ``iqfile``, ``print``,
-``json`` and ``benchmark``.  Any other name raises."""
+``iqfile``; ``OUTPUTS`` holds ``wavfile``, ``iqfile``, ``realfile``,
+``print``, ``json`` and ``benchmark``.  Any other name raises."""
 
 from __future__ import annotations
 
@@ -66,9 +66,16 @@ def _out_iqfile(spec, *a):
     return radio.IQFileSink(spec.args[0], fmt)
 
 
+def _out_realfile(spec, *a):
+    fmt = spec.args[1] if len(spec.args) > 1 else \
+        spec.options.get("format", "f32le")
+    return radio.RealFileSink(spec.args[0], fmt)
+
+
 OUTPUTS = {
     "wavfile": _out_wavfile,
     "iqfile": _out_iqfile,
+    "realfile": _out_realfile,
     "print": lambda spec, *a: radio.PrintSink(),
     "json": lambda spec, *a: radio.JSONSink(
         spec.args[0] if spec.args else None),

@@ -1,9 +1,8 @@
 """Carrier and clock recovery and level control: the PLL, the vectorized
-pilot recovery, the AGC, the zero-crossing clock recovery and the binary
-phase corrector (the JAX package's blocks/signal/carrier.py; reference:
-radio/blocks/signal/{pll,agc,zerocrossingclockrecovery,
-binaryphasecorrector}.lua).  The power squelch is a later slice of the
-port."""
+pilot recovery, the AGC, the power squelch, the zero-crossing clock
+recovery and the binary phase corrector (the JAX package's
+blocks/signal/carrier.py; reference: radio/blocks/signal/{pll,agc,
+powersquelch,zerocrossingclockrecovery,binaryphasecorrector}.lua)."""
 
 from __future__ import annotations
 
@@ -209,6 +208,34 @@ class AGCBlock(SignalBlock):
         return (p[..., -1], g[..., -1]), y
 
 
+class PowerSquelchBlock(SignalBlock):
+    """Zero the output while the 1-pole average power is below a threshold
+    in dB (reference: powersquelch.lua); the average is a first-order
+    recurrence (ops/scan.py linrec_first_order) carried across chunks."""
+
+    def __init__(self, threshold: float, tau: float = 0.001):
+        super().__init__()
+        self.threshold_db = threshold
+        self.tau = tau
+        for t in (Float32, ComplexFloat32):
+            self.add_type_signature([Input("in", t)], [Output("out", t)])
+
+    def initialize(self):
+        self._alpha = np.float32(1.0 / (1.0 + self.tau * self.get_rate()))
+        self._threshold = np.float32(10 ** (self.threshold_db / 10))
+
+    def init_state(self):
+        return torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def process(self, state, x):
+        a = self._alpha
+        power_in = x.abs().to(torch.float32) ** 2
+        p = linrec_first_order(float(a) * power_in,
+                               float(np.float32(1.0) - a), state)
+        y = torch.where(p >= float(self._threshold), x, torch.zeros_like(x))
+        return p[..., -1], y
+
+
 class ZeroCrossingClockRecoveryBlock(SignalBlock):
     """Emit a +1/-1 clock aligned to half a symbol period after each input
     zero crossing (reference: zerocrossingclockrecovery.lua).
@@ -308,6 +335,6 @@ class BinaryPhaseCorrectorBlock(SignalBlock):
         return seq[..., -num:], y.to(torch.complex64)
 
 
-__all__ = ["PLLBlock", "PilotRecoveryBlock", "AGCBlock",
+__all__ = ["PLLBlock", "PilotRecoveryBlock", "AGCBlock", "PowerSquelchBlock",
            "ZeroCrossingClockRecoveryBlock", "BinaryPhaseCorrectorBlock",
            "pilot_normalize_multiply"]

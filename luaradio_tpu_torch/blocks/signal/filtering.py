@@ -7,8 +7,8 @@ bandstopfilter.lua, complexbandpassfilter.lua, complexbandstopfilter.lua,
 and the single-pole designs singlepolelowpassfilter.lua,
 singlepolehighpassfilter.lua, fmdeemphasisfilter.lua,
 fmpreemphasisfilter.lua).  FIR filters run as float32 convolutions
-(ops/fir.py); single-pole IIR recurrences as blocked matrix products
-(ops/scan.py).
+(ops/fir.py) or, with ``use_fft=True``, FFT overlap-save; IIR recurrences
+as blocked matrix products (ops/scan.py).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 
 from luaradio_tpu_torch.core.block import Input, Output, SignalBlock
 from luaradio_tpu_torch.ops import fir as fir_ops
-from luaradio_tpu_torch.ops.scan import linrec_first_order
+from luaradio_tpu_torch.ops import scan as scan_ops
 from luaradio_tpu_torch.types import ComplexFloat32, Float32
 from luaradio_tpu_torch.utils import filter_design
 
@@ -34,11 +34,17 @@ class FIRFilterBlock(SignalBlock):
     """Streaming FIR filter.
 
     Signatures mirror the reference (firfilter.lua:28-50): complex taps x
-    complex input, real taps x complex input, real taps x real input.  One
-    convolution per chunk whatever the tap count (the reference's FFT
-    overlap-save path, firfilter.lua:313-492, is a CPU optimisation)."""
+    complex input, real taps x complex input, real taps x real input.
+    ``use_fft=True`` runs FFT overlap-save (ops/fir.py fir_fft, the
+    reference's firfilter.lua:313-492 and the JAX package's path), whose
+    frame hop L makes the block's chunk a multiple of L; ``False`` and
+    ``None`` run one direct convolution a chunk.  ``None`` departs from
+    the JAX package, whose default takes FFT above 16 taps: that default
+    would force every undecimated FIR above 16 taps (the Hilbert
+    transform, the stereo and SSB bandpasses) to chunks of a multiple of
+    1024 or more and move the receivers' chunk plans."""
 
-    def __init__(self, taps):
+    def __init__(self, taps, use_fft: bool | None = None):
         super().__init__()
         taps = np.asarray(taps)
         if np.iscomplexobj(taps):
@@ -51,17 +57,35 @@ class FIRFilterBlock(SignalBlock):
                                     [Output("out", ComplexFloat32)])
             self.add_type_signature([Input("in", Float32)],
                                     [Output("out", Float32)])
+        self.use_fft = use_fft
+
+    def chunk_multiple(self) -> int:
+        return (fir_ops.fft_frame_length(len(self.taps)) if self.use_fft
+                else 1)
 
     def initialize(self):
-        self._taps = _taps_tensor(self.taps, self.device)
+        if self.use_fft:
+            self._l = fir_ops.fft_frame_length(len(self.taps))
+            self._real_fft = (self.get_input_type() == Float32
+                              and not np.iscomplexobj(self.taps))
+            self._h_freq = torch.from_numpy(fir_ops.fir_fft_freq_taps(
+                self.taps, self._l, self._real_fft)).to(self.device)
+        else:
+            self._taps = _taps_tensor(self.taps, self.device)
 
     def init_state(self):
         dtype = (torch.complex64 if self.get_input_type() == ComplexFloat32
                  else torch.float32)
+        if self.use_fft:
+            return fir_ops.fir_fft_init_state(self._l, dtype, self.device)
         return fir_ops.fir_init_state(len(self.taps), dtype, self.device)
 
     def process(self, state, x):
-        y, state = fir_ops.fir_direct(x, self._taps, state)
+        if self.use_fft:
+            y, state = fir_ops.fir_fft(x, self._h_freq, state,
+                                       self._real_fft)
+        else:
+            y, state = fir_ops.fir_direct(x, self._taps, state)
         return state, y
 
     def fir_equivalent(self):
@@ -73,13 +97,13 @@ class FIRFilterBlock(SignalBlock):
 
 
 class IIRFilterBlock(SignalBlock):
-    """IIR filter y = (b/a) * x (reference: iirfilter.lua).
-
-    This slice of the port runs filters of order <= 1 — the single-pole
-    designs of the receivers (deemphasis, single-pole lowpass) — in the
-    transposed direct form II: s[n] = -a1 s[n-1] + g x[n],
-    y[n] = b0 x[n] + s[n-1], with the recurrence solved by
-    ops/scan.py linrec_first_order.  Higher orders raise."""
+    """IIR filter y = (b/a) * x of any order (reference: iirfilter.lua) in
+    the transposed direct form II state space s[n] = A s[n-1] + g x[n],
+    y[n] = b0 x[n] + s[n-1][0] (ops/scan.py iir_state_space), with the
+    state [..., p] carried across chunks.  Order 1 — the single-pole
+    designs of the receivers (deemphasis, single-pole lowpass) — solves
+    its scalar recurrence with linrec_first_order; order 2 and above run
+    ops/scan.py iir_apply, the blocked order-p scan."""
 
     def __init__(self, b_taps, a_taps):
         super().__init__()
@@ -97,20 +121,13 @@ class IIRFilterBlock(SignalBlock):
 
     def initialize(self):
         self.b_taps, self.a_taps = self._design_ba()
-        b = self.b_taps / self.a_taps[0]
-        a = self.a_taps / self.a_taps[0]
-        order = max(len(b), len(a)) - 1
-        if order > 1:
-            raise NotImplementedError(
-                f"{self.name}: IIR order {order} is not ported yet "
-                f"(order <= 1 only)")
-        bb = np.zeros(2)
-        bb[:len(b)] = b
-        a1 = a[1] if len(a) > 1 else 0.0
-        self._order = order
-        self._b0 = float(np.float32(bb[0]))
-        self._g = float(np.float32(bb[1] - a1 * bb[0]))
-        self._pole = float(np.float32(-a1))
+        self._A, self._g, b0 = scan_ops.iir_state_space(self.b_taps,
+                                                        self.a_taps)
+        self._order = self._A.shape[0]
+        self._b0 = float(b0)
+        if self._order == 1:
+            self._g1 = float(self._g[0])
+            self._pole = float(self._A[0, 0])
 
     def init_state(self):
         dtype = (torch.complex64 if self.get_input_type() == ComplexFloat32
@@ -120,8 +137,12 @@ class IIRFilterBlock(SignalBlock):
     def process(self, state, x):
         if self._order == 0:
             return state, x * self._b0
+        if self._order > 1:
+            y, state = scan_ops.iir_apply(x, self._A, self._g, self._b0,
+                                          state)
+            return state, y
         s_in = state[..., 0]
-        s = linrec_first_order(x * self._g, self._pole, s_in)
+        s = scan_ops.linrec_first_order(x * self._g1, self._pole, s_in)
         s_prev = torch.cat([s_in.expand(x.shape[:-1])[..., None],
                             s[..., :-1]], dim=-1)
         y = x * self._b0 + s_prev
@@ -140,9 +161,10 @@ class _DesignedFIRBlock(FIRFilterBlock):
     sample rate (like the reference wrappers, which design taps in
     initialize() using the differentiated rate)."""
 
-    def __init__(self, num_taps: int, complex_taps: bool = False):
+    def __init__(self, num_taps: int, complex_taps: bool = False,
+                 use_fft: bool | None = None):
         super().__init__(np.zeros(num_taps, dtype=np.complex64 if complex_taps
-                                  else np.float32))
+                                  else np.float32), use_fft=use_fft)
         self.num_taps = num_taps
 
     def design_taps(self) -> np.ndarray:
@@ -156,8 +178,9 @@ class _DesignedFIRBlock(FIRFilterBlock):
 
 class LowpassFilterBlock(_DesignedFIRBlock):
     def __init__(self, num_taps: int, cutoff: float,
-                 nyquist: float | None = None, window: str = "hamming"):
-        super().__init__(num_taps)
+                 nyquist: float | None = None, window: str = "hamming",
+                 use_fft: bool | None = None):
+        super().__init__(num_taps, use_fft=use_fft)
         self.cutoff = cutoff
         self.nyquist = nyquist
         self.window = window
@@ -170,8 +193,9 @@ class LowpassFilterBlock(_DesignedFIRBlock):
 
 class HighpassFilterBlock(_DesignedFIRBlock):
     def __init__(self, num_taps: int, cutoff: float,
-                 nyquist: float | None = None, window: str = "hamming"):
-        super().__init__(num_taps)
+                 nyquist: float | None = None, window: str = "hamming",
+                 use_fft: bool | None = None):
+        super().__init__(num_taps, use_fft=use_fft)
         self.cutoff = cutoff
         self.nyquist = nyquist
         self.window = window
@@ -189,8 +213,9 @@ class _BandFIRBlock(_DesignedFIRBlock):
     _complex = False
 
     def __init__(self, num_taps: int, cutoffs, nyquist: float | None = None,
-                 window: str = "hamming"):
-        super().__init__(num_taps, complex_taps=self._complex)
+                 window: str = "hamming", use_fft: bool | None = None):
+        super().__init__(num_taps, complex_taps=self._complex,
+                         use_fft=use_fft)
         self.cutoffs = tuple(cutoffs)
         self.nyquist = nyquist
         self.window = window
@@ -230,8 +255,9 @@ class RootRaisedCosineFilterBlock(_DesignedFIRBlock):
     """Root-raised-cosine matched filter (reference:
     rootraisedcosinefilter.lua)."""
 
-    def __init__(self, num_taps: int, beta: float, symbol_rate: float):
-        super().__init__(num_taps)
+    def __init__(self, num_taps: int, beta: float, symbol_rate: float,
+                 use_fft: bool | None = None):
+        super().__init__(num_taps, use_fft=use_fft)
         self.beta = beta
         self.symbol_rate = symbol_rate
 

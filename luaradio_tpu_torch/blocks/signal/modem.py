@@ -1,9 +1,10 @@
-"""Modulation / demodulation blocks on the main path.
+"""Modulation / demodulation blocks.
 
 Equivalents of the reference's
-radio/blocks/signal/{frequencytranslator,frequencydiscriminator}.lua, and
-the fused discriminator + decimating FIR that the graph optimizer puts in
-their place on request (core/optimize.py).
+radio/blocks/signal/{frequencytranslator,frequencydiscriminator,
+frequencymodulator,pulseamplitudemodulator,quadratureamplitudemodulator}.lua,
+and the fused discriminator + decimating FIR that the graph optimizer puts
+in place of a discriminator and its filter on request (core/optimize.py).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 from luaradio_tpu_torch.core.block import Input, Output, SignalBlock
 from luaradio_tpu_torch.ops import wbfm
 from luaradio_tpu_torch.ops.mixer import PhasorRamp
-from luaradio_tpu_torch.types import ComplexFloat32, Float32
+from luaradio_tpu_torch.ops.scan import cumsum_phase
+from luaradio_tpu_torch.types import Bit, ComplexFloat32, Float32
 
 
 class FrequencyTranslatorBlock(SignalBlock):
@@ -62,6 +64,114 @@ class FrequencyDiscriminatorBlock(SignalBlock):
         inv_gain = float(np.float32(1.0 / self.gain))
         y = torch.atan2(tmp.imag, tmp.real) * inv_gain
         return x[..., -1], y
+
+
+class FrequencyModulatorBlock(SignalBlock):
+    """y[n] = exp(j phi[n]), phi[n] = phi[n-1] + 2 pi k x[n] (reference:
+    frequencymodulator.lua); the phase is a cumulative sum a chunk, its
+    carry wrapped into (-pi, pi] (ops/scan.py cumsum_phase)."""
+
+    def __init__(self, modulation_index: float):
+        super().__init__()
+        self.modulation_index = float(modulation_index)
+        self.add_type_signature([Input("in", Float32)],
+                                [Output("out", ComplexFloat32)])
+
+    def init_state(self):
+        return torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def process(self, state, x):
+        delta = float(np.float32(2 * np.pi * self.modulation_index))
+        phi, carry = cumsum_phase(x * delta, state)
+        return carry, torch.complex(torch.cos(phi), torch.sin(phi))
+
+
+def _gray(v: int) -> int:
+    return v ^ (v >> 1)
+
+
+class PulseAmplitudeModulatorBlock(SignalBlock):
+    """Bits -> gray-coded M-level PAM at symbol_period samples a symbol
+    (reference: pulseamplitudemodulator.lua)."""
+
+    def __init__(self, symbol_rate: float, sample_rate: float, levels: int,
+                 msb_first: bool = True, amplitudes=None):
+        super().__init__()
+        if levels < 2 or levels & (levels - 1):
+            raise ValueError("levels must be a power of 2 and > 1")
+        self.symbol_rate = symbol_rate
+        self.sample_rate = sample_rate
+        self.levels = levels
+        self.symbol_bits = int(np.log2(levels))
+        # floor of the true quotient, like the reference's math.floor
+        # (pulseamplitudemodulator.lua:40), not Python's a // b, whose
+        # fmod-based result differs on exact-ratio floats (2.0 // 0.4 ==
+        # 4.0 but floor(2.0 / 0.4) == 5)
+        self.symbol_period = int(np.floor(sample_rate / symbol_rate))
+        self.msb_first = msb_first
+        if amplitudes is None:
+            scaling = np.sqrt((levels ** 2 - 1) / 3.0)
+            amplitudes = np.zeros(levels, dtype=np.float32)
+            for level in range(levels):
+                amplitudes[_gray(level)] = (2 * level - levels + 1) / scaling
+        self.amplitudes = np.asarray(amplitudes, dtype=np.float32)
+        self.add_type_signature([Input("in", Bit)], [Output("out", Float32)])
+
+    def get_rate_ratio(self):
+        return Fraction(self.symbol_period, self.symbol_bits)
+
+    def chunk_multiple(self):
+        return self.symbol_bits
+
+    def initialize(self):
+        self._table = torch.from_numpy(self._symbols()).to(self.device)
+        b = self.symbol_bits
+        order = range(b - 1, -1, -1) if self.msb_first else range(b)
+        self._weights = torch.tensor([1 << k for k in order],
+                                     dtype=torch.int64, device=self.device)
+
+    def _symbols(self) -> np.ndarray:
+        return self.amplitudes
+
+    def process(self, state, x):
+        bits = x.reshape(x.shape[:-1] + (-1, self.symbol_bits))
+        idx = (bits.to(torch.int64) * self._weights).sum(-1)
+        y = torch.repeat_interleave(self._table[idx], self.symbol_period,
+                                    dim=-1)
+        return state, y
+
+
+class QuadratureAmplitudeModulatorBlock(PulseAmplitudeModulatorBlock):
+    """Bits -> gray-coded square QAM constellation
+    (reference: quadratureamplitudemodulator.lua)."""
+
+    def __init__(self, symbol_rate: float, sample_rate: float, points: int,
+                 msb_first: bool = True, constellation=None):
+        if points < 2 or points & (points - 1):
+            raise ValueError("points must be a power of 2 and > 1")
+        symbol_bits = int(np.log2(points))
+        if constellation is None:
+            i_bits = -(-symbol_bits // 2)
+            q_bits = symbol_bits - i_bits
+            i_levels, q_levels = 2 ** i_bits, 2 ** q_bits
+            scaling = np.sqrt(2 * (points - 1) / 3.0)
+            constellation = np.zeros(points, dtype=np.complex64)
+            for point in range(points):
+                i_value = point >> q_bits
+                q_value = point & (q_levels - 1)
+                gray_point = (_gray(i_value) << q_bits) | _gray(q_value)
+                constellation[gray_point] = complex(
+                    2 * i_value - i_levels + 1,
+                    2 * q_value - q_levels + 1) / scaling
+        super().__init__(symbol_rate, sample_rate, points, msb_first,
+                         amplitudes=np.zeros(points, dtype=np.float32))
+        self.constellation = np.asarray(constellation, dtype=np.complex64)
+        self.signatures.clear()
+        self.add_type_signature([Input("in", Bit)],
+                                [Output("out", ComplexFloat32)])
+
+    def _symbols(self) -> np.ndarray:
+        return self.constellation
 
 
 class DiscriminatorDecimatingFIRBlock(SignalBlock):
@@ -128,4 +238,6 @@ class DiscriminatorDecimatingFIRBlock(SignalBlock):
 
 
 __all__ = ["FrequencyTranslatorBlock", "FrequencyDiscriminatorBlock",
+           "FrequencyModulatorBlock", "PulseAmplitudeModulatorBlock",
+           "QuadratureAmplitudeModulatorBlock",
            "DiscriminatorDecimatingFIRBlock"]

@@ -1,8 +1,7 @@
-"""File sinks on the main path: IQ and WAV.
+"""File sinks: IQ, real, raw and WAV.
 
-Equivalents of radio/blocks/sinks/{iqfile,wavfile}.lua.  Host blocks:
-convert numpy chunks to wire bytes (vectorized) and write.  (The real and
-raw file sinks are later slices of the port.)
+Equivalents of radio/blocks/sinks/{iqfile,realfile,rawfile,wavfile}.lua.
+Host blocks: convert numpy chunks to wire bytes (vectorized) and write.
 """
 
 from __future__ import annotations
@@ -55,6 +54,32 @@ class IQFileSink(_FileSinkBase):
     def process(self, x):
         self.file.write(format_utils.complex_to_bytes(np.asarray(x),
                                                       self.format))
+
+
+class RealFileSink(_FileSinkBase):
+    """Float32 samples -> binary file in any of the 14 wire formats
+    (reference: realfile.lua)."""
+
+    def __init__(self, file, format: str):
+        super().__init__(file)
+        self.format = format_utils.get_format(format)
+        self.add_type_signature([Input("in", Float32)], [])
+
+    def process(self, x):
+        self.file.write(format_utils.real_to_bytes(np.asarray(x),
+                                                   self.format))
+
+
+class RawFileSink(_FileSinkBase):
+    """The native in-memory sample stream of any type (reference:
+    rawfile.lua)."""
+
+    def __init__(self, file):
+        super().__init__(file)
+        self.add_type_signature([Input("in", lambda t: True)], [])
+
+    def process(self, x):
+        self.file.write(np.ascontiguousarray(np.asarray(x)).tobytes())
 
 
 class WAVFileSink(_FileSinkBase):
@@ -112,4 +137,4 @@ class WAVFileSink(_FileSinkBase):
         super().cleanup()
 
 
-__all__ = ["IQFileSink", "WAVFileSink"]
+__all__ = ["IQFileSink", "RealFileSink", "RawFileSink", "WAVFileSink"]

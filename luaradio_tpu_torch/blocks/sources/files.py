@@ -1,26 +1,31 @@
-"""IQ file source: the reference's radio/blocks/sources/iqfile.lua.
+"""File sources: IQ, real, raw, WAV and JSON (the reference's
+radio/blocks/sources/{iqfile,realfile,rawfile,wavfile,json}.lua).
 
-A host block: it reads bytes and converts them to numpy sample arrays
-(vectorized, unlike the reference's per-sample Lua loops).  Formats whose
-conversion is exact in float32 arithmetic (8- and 16-bit integers) also
-offer *wire ingest*: the runtime ships the raw 1-2 byte items to the card
-and converts them there (core/block.py HostSourceBlock).  A repeating
-source may instead be decoded onto the card once, as a device-resident
-ring that the runtime reads windows from (_FileSourceBase).  (The other
-file sources are later slices of the port.)
+Host blocks: they read bytes and convert them to numpy sample arrays
+(vectorized, unlike the reference's per-sample Lua loops).  The IQ and
+real file sources share _WireFileSource: formats whose conversion is exact
+in float32 arithmetic (8- and 16-bit integers) also offer *wire ingest*,
+where the runtime ships the raw 1-2 byte items to the card and converts
+them there (core/block.py HostSourceBlock).  A repeating binary source
+(IQ, real, raw) may instead be decoded onto the card once, as a
+device-resident ring that the runtime reads windows from
+(_FileSourceBase).
 """
 
 from __future__ import annotations
 
+import json as _json
 import mmap
 import os
+import struct
 
 import numpy as np
 import torch
 
 from luaradio_tpu_torch.core.block import HostSourceBlock, Output
 from luaradio_tpu_torch.ops.complexutil import to_device, wire_to_complex
-from luaradio_tpu_torch.types import ComplexFloat32
+from luaradio_tpu_torch.types import (ComplexFloat32, Float32, SampleType,
+                                      object_type)
 from luaradio_tpu_torch.utils import format as format_utils
 
 #: wire formats whose raw->float conversion is exact in float32 arithmetic;
@@ -41,16 +46,25 @@ def _open_readable(file):
 
 
 def _make_wire_ingest(fmt, complex_: bool):
-    """On-device raw -> samples converter for an exact-in-f32 wire format:
-    float = (raw - offset) / scale, then interleaved pairs -> complex64."""
-    offset = np.float32(fmt.offset)
-    scale = np.float32(fmt.scale)
+    """On-device raw -> samples converter for an 8- or 16-bit wire format:
+    float = (raw - offset) / scale, then interleaved pairs -> complex64.
+
+    It computes what the host path (utils/format.py raw_to_float) does,
+    bit for bit, in float32: ``raw - offset`` and the scale are exact in
+    float32, and a correctly rounded float32 quotient of two float32
+    values equals the float64 quotient rounded to float32.  The divisor
+    is a 0-d tensor on the device: PyTorch turns a division by a Python
+    scalar on the card into a multiply by its reciprocal, which put a
+    conversion one ulp off the host path for some codes."""
+    offset = float(fmt.offset)
+    scale = float(fmt.scale)
     u16 = fmt.dtype.kind == "u" and fmt.itemsize == 2
 
     def ingest(raw: torch.Tensor) -> torch.Tensor:
         if u16:  # shipped as int16 (torch's uint16 has few kernels)
             raw = raw.to(torch.int32) & 0xFFFF
-        f = (raw.to(torch.float32) - offset) / scale
+        div = torch.full((), scale, dtype=torch.float32, device=raw.device)
+        f = (raw.to(torch.float32) - offset) / div
         return wire_to_complex(f) if complex_ else f
     return ingest
 
@@ -203,27 +217,22 @@ class _FileSourceBase(HostSourceBlock):
         return out
 
 
-class IQFileSource(_FileSourceBase):
-    """Complex samples from an interleaved-I/Q binary file in any of the 14
-    scalar wire formats (reference: iqfile.lua:82-116)."""
+class _WireFileSource(_FileSourceBase):
+    """The IQ and real file sources: a scalar wire ``format``, the wire
+    ingest of the exact-in-float32 formats, and their rings.
+    ``_wire_factor`` is wire items a sample (2 for interleaved I/Q)."""
 
-    _wire_factor = 2
+    _wire_factor = 1
 
     def __init__(self, file, format: str, rate: float,
                  repeat_on_eof: bool = False, resident: bool | None = None):
         super().__init__(file, rate, repeat_on_eof, resident)
         self.format = format_utils.get_format(format)
-        self.add_type_signature([], [Output("out", ComplexFloat32)])
-
-    def read(self, n: int):
-        buf = self._read_bytes(n * 2 * self.format.itemsize)
-        if not buf:
-            return None
-        return format_utils.bytes_to_complex(buf, self.format)
 
     def device_ingest(self):
         if self.format.name in _DEVICE_CONVERT_FORMATS:
-            return _make_wire_ingest(self.format, complex_=True)
+            return _make_wire_ingest(self.format,
+                                     complex_=self._wire_factor == 2)
         return None
 
     def _raw(self, buf: bytes, count: int) -> np.ndarray:
@@ -237,6 +246,16 @@ class IQFileSource(_FileSourceBase):
         if not raw.flags.writeable:   # torch tensors need writable memory
             raw = raw.copy()
         return raw
+
+    def _convert(self, buf: bytes) -> np.ndarray:
+        """Host conversion of whole samples of ``buf``."""
+        raise NotImplementedError
+
+    def read(self, n: int):
+        buf = self._read_bytes(n * self._wire_factor * self.format.itemsize)
+        if not buf:
+            return None
+        return self._convert(buf)
 
     def wire_read(self, n: int):
         item = self.format.itemsize
@@ -258,16 +277,224 @@ class IQFileSource(_FileSourceBase):
         buf = self._whole_file_bytes()
         if not buf:
             return None
-        item = self.format.itemsize
-        n = len(buf) // (2 * item)
+        k, item = self._wire_factor, self.format.itemsize
+        n = len(buf) // (k * item)
         if self.device_ingest() is not None:
-            return self._raw(buf, 2 * n), n, 2
-        z = format_utils.bytes_to_complex(buf[:n * 2 * item], self.format)
-        return z.view(np.float32), n, 2
+            return self._raw(buf, k * n), n, k
+        f = self._convert(buf[:n * k * item])
+        return f.view(np.float32), n, k
 
     def _decode_ring(self, ring):
         conv = self.device_ingest()
-        return conv(ring) if conv is not None else wire_to_complex(ring)
+        if conv is not None:
+            return conv(ring)
+        return wire_to_complex(ring) if self._wire_factor == 2 else ring
 
 
-__all__ = ["IQFileSource", "RESIDENT_BUDGET"]
+class IQFileSource(_WireFileSource):
+    """Complex samples from an interleaved-I/Q binary file in any of the 14
+    scalar wire formats (reference: iqfile.lua:82-116)."""
+
+    _wire_factor = 2
+
+    def __init__(self, file, format: str, rate: float,
+                 repeat_on_eof: bool = False, resident: bool | None = None):
+        super().__init__(file, format, rate, repeat_on_eof, resident)
+        self.add_type_signature([], [Output("out", ComplexFloat32)])
+
+    def _convert(self, buf):
+        return format_utils.bytes_to_complex(buf, self.format)
+
+
+class RealFileSource(_WireFileSource):
+    """Float32 samples from a binary file in any of the 14 scalar wire
+    formats (reference: realfile.lua)."""
+
+    def __init__(self, file, format: str, rate: float,
+                 repeat_on_eof: bool = False, resident: bool | None = None):
+        super().__init__(file, format, rate, repeat_on_eof, resident)
+        self.add_type_signature([], [Output("out", Float32)])
+
+    def _convert(self, buf):
+        return format_utils.bytes_to_real(buf, self.format)
+
+
+class RawFileSource(_FileSourceBase):
+    """The native in-memory sample stream of any basic type (reference:
+    rawfile.lua reads the wire structs directly)."""
+
+    def __init__(self, file, data_type: SampleType, rate: float,
+                 repeat_on_eof: bool = False, resident: bool | None = None):
+        super().__init__(file, rate, repeat_on_eof, resident)
+        self.data_type = data_type
+        self.add_type_signature([], [Output("out", data_type)])
+
+    def _payload_nbytes_bound(self, file_bytes: int) -> int:
+        return file_bytes        # the payload is the file, viewed in place
+
+    def read(self, n: int):
+        item = self.data_type.dtype.itemsize
+        buf = self._read_bytes(n * item)
+        if not buf:
+            return None
+        count = len(buf) // item
+        # a copy: torch tensors need writable memory
+        return np.frombuffer(buf[:count * item],
+                             dtype=self.data_type.dtype).copy()
+
+    def _decode_all(self):
+        buf = self._whole_file_bytes()
+        if not buf:
+            return None
+        dt = self.data_type.dtype
+        n = len(buf) // dt.itemsize
+        arr = np.frombuffer(buf[:n * dt.itemsize], dtype=dt).copy()
+        if dt.kind == "c":
+            return arr.view(np.float32), n, 2
+        return arr, n, 1
+
+    def _decode_ring(self, ring):
+        return wire_to_complex(ring) if self.data_type.dtype.kind == "c" \
+            else ring
+
+
+class WAVFileSource(HostSourceBlock):
+    """PCM or float WAV file source, one Float32 output per channel
+    (reference: wavfile.lua; u8, s16 and s32 PCM, f32 and f64 float)."""
+
+    _FMT_DTYPES = {(1, 8): np.dtype("u1"), (1, 16): np.dtype("<i2"),
+                   (1, 32): np.dtype("<i4"), (3, 32): np.dtype("<f4"),
+                   (3, 64): np.dtype("<f8")}
+
+    def __init__(self, file, num_channels: int, repeat_on_eof: bool = False):
+        super().__init__()
+        self._file_arg = file
+        self.num_channels = int(num_channels)
+        self.repeat_on_eof = repeat_on_eof
+        self.file = None
+        if num_channels == 1:
+            self.add_type_signature([], [Output("out", Float32)])
+        else:
+            self.add_type_signature(
+                [], [Output(f"out{i+1}", Float32)
+                     for i in range(num_channels)])
+
+    def initialize(self):
+        if self.file is not None:
+            return
+        self.file, self._owns = _open_readable(self._file_arg)
+        riff, _size, wave = struct.unpack("<4sI4s", self.file.read(12))
+        if riff != b"RIFF" or wave != b"WAVE":
+            raise ValueError("not a RIFF/WAVE file")
+        fmt = None
+        while True:
+            hdr = self.file.read(8)
+            if len(hdr) < 8:
+                raise ValueError("WAV: no data chunk found")
+            cid, csz = struct.unpack("<4sI", hdr)
+            if cid == b"fmt ":
+                data = self.file.read(csz)
+                (tag, nch, rate, _br, _ba, bits) = struct.unpack(
+                    "<HHIIHH", data[:16])
+                fmt = (tag, nch, rate, bits)
+            elif cid == b"data":
+                self._data_start = self.file.tell()
+                self._data_size = csz
+                break
+            else:
+                self.file.seek(csz + (csz & 1), 1)
+        if fmt is None:
+            raise ValueError("WAV: no fmt chunk found")
+        tag, nch, rate, bits = fmt
+        if nch != self.num_channels:
+            raise ValueError(f"WAV has {nch} channels, expected "
+                             f"{self.num_channels}")
+        if (tag, bits) not in self._FMT_DTYPES:
+            raise ValueError(f"unsupported WAV format tag={tag} bits={bits}")
+        self.rate = float(rate)
+        self._dtype = self._FMT_DTYPES[(tag, bits)]
+        self._bits = bits
+        self._tag = tag
+        self._read_bytes_left = self._data_size
+
+    def get_rate(self):
+        if self.rate is None:
+            self.initialize()
+        return float(self.rate)
+
+    def read(self, n: int):
+        item = self._dtype.itemsize * self.num_channels
+        want = min(n * item, self._read_bytes_left)
+        buf = self.file.read(want) if want > 0 else b""
+        self._read_bytes_left -= len(buf)
+        if not buf:
+            if self.repeat_on_eof:
+                self.file.seek(self._data_start)
+                self._read_bytes_left = self._data_size
+                buf = self.file.read(min(n * item, self._read_bytes_left))
+                self._read_bytes_left -= len(buf)
+            if not buf:
+                return None
+        count = len(buf) // item
+        raw = np.frombuffer(buf[:count * item], dtype=self._dtype)
+        raw = raw.reshape(-1, self.num_channels)
+        if self._tag == 3:
+            f = raw.astype(np.float32)
+        elif self._bits == 8:
+            f = (raw.astype(np.float32) - 127.5) / 127.5
+        else:
+            scale = float(2 ** (self._bits - 1) - 0.5)
+            f = raw.astype(np.float32) / scale
+        if self.num_channels == 1:
+            return f[:, 0]
+        return tuple(np.ascontiguousarray(f[:, i])
+                     for i in range(self.num_channels))
+
+    def cleanup(self):
+        if self.file is not None and getattr(self, "_owns", False):
+            self.file.close()
+            self.file = None
+
+
+class JSONSource(HostSourceBlock):
+    """Newline-delimited JSON object stream (reference: json.lua): host
+    object samples at the given rate."""
+
+    def __init__(self, file, rate: float):
+        super().__init__()
+        self._file_arg = file
+        self.rate = rate
+        self.file = None
+        self.add_type_signature([], [Output("out",
+                                            object_type("JSONObject"))])
+
+    def initialize(self):
+        if self.file is None:
+            if isinstance(self._file_arg, str):
+                self.file = open(self._file_arg, "r")
+                self._owns = True
+            else:
+                self.file = self._file_arg
+                self._owns = False
+
+    def read(self, n: int):
+        out = []
+        for _ in range(n):
+            line = self.file.readline()
+            if not line:
+                break
+            line = line.strip()
+            if line:
+                out.append(_json.loads(line))
+        if not out:
+            return None
+        return out
+
+    def cleanup(self):
+        if self.file is not None and getattr(self, "_owns", False):
+            self.file.close()
+            self.file = None
+
+
+__all__ = ["IQFileSource", "RealFileSource", "RawFileSource",
+           "WAVFileSource", "JSONSource", "RESIDENT_BUDGET"]

@@ -228,6 +228,11 @@ class SignalBlock(Block):
     the port.)"""
 
     domain = "device"
+    #: no coupling along time (elementwise math, zero stuffing, aligned
+    #: decimation): process() on any split of the time axis is exact.
+    #: The JAX package's time sharding reads it; the port marks the same
+    #: blocks for the time-sharding slice.
+    time_local = False
 
     def init_state(self) -> Any:
         return None

@@ -169,31 +169,42 @@ class CompositeBlock(Block):
         return leaf_blocks, edges
 
     # -- run API (mirrors composite.lua:514-950) ---------------------------
-    def run(self, max_chunks: int | None = None,
+    def run(self, mode: str = "fused", max_chunks: int | None = None,
             chunk_size: int | None = None, optimize: bool = True,
-            device=None, channels: int | None = None):
+            mesh=None, channels: int | None = None, *, device=None):
         """Run the flow graph to completion (EOF of any source).
 
-        ``device`` defaults to the CUDA card (core/platform.py
-        resolve_device); ``device="cpu"`` runs the plain PyTorch path.
-        ``channels=C`` runs the graph as a bank of C channels on the one
-        device (core/runtime.py Runner), the single-card form of the JAX
-        package's ``run(mesh=<channel mesh>, channels=C)``."""
+        The positional parameters are the JAX package's, in its order, up
+        to ``channels``.  ``mode`` is "fused" (the read-ahead thread and
+        the pipelined pump) or "eager" (sources read in the pump, never
+        pipelined; the same segments, so the same output bit for bit).
+        ``mesh`` other than None raises NotImplementedError: time sharding
+        over several cards is a later slice of the port.  The JAX
+        package's ``channel_axis``, ``time_axis`` and ``ingest`` are left
+        out (the mesh axes come with time sharding; ``ingest`` was taken
+        out of the port on purpose).  ``device`` defaults to the CUDA card
+        (core/platform.py resolve_device); ``device="cpu"`` runs the plain
+        PyTorch path.  ``channels=C`` runs the graph as a bank of C
+        channels on the one device (core/runtime.py Runner), the
+        single-card form of the JAX package's ``run(mesh=<channel mesh>,
+        channels=C)``."""
         from luaradio_tpu_torch.core.runtime import Runner
-        runner = Runner(self, chunk_size=chunk_size, optimize=optimize,
-                        device=device, channels=channels)
+        runner = Runner(self, mode=mode, chunk_size=chunk_size,
+                        optimize=optimize, mesh=mesh, channels=channels,
+                        device=device)
         runner.run(max_chunks=max_chunks)
         return self
 
-    def start(self, chunk_size: int | None = None,
-              optimize: bool = True, device=None,
-              channels: int | None = None):
+    def start(self, mode: str = "fused", chunk_size: int | None = None,
+              optimize: bool = True, mesh=None,
+              channels: int | None = None, *, device=None):
+        """Run the flow graph on a thread of its own (see :meth:`run`)."""
         from luaradio_tpu_torch.core.runtime import Runner
         if self._runner is not None and self._runner.running:
             raise RuntimeError("flow graph already running")
-        self._runner = Runner(self, chunk_size=chunk_size,
-                              optimize=optimize, device=device,
-                              channels=channels)
+        self._runner = Runner(self, mode=mode, chunk_size=chunk_size,
+                              optimize=optimize, mesh=mesh,
+                              channels=channels, device=device)
         self._runner.start()
         return self
 

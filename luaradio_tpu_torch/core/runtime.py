@@ -23,6 +23,18 @@ broadcast over leading axes, as the JAX package's vmap does), BankSource
 chunks arrive as [C, n], device sources are generated once and replicated
 C times, and mid-graph host blocks run as one clone per channel on their
 row of the boundary arrays.
+
+Modes (the JAX package's):
+  - "fused": the read-ahead thread and, where no host block feeds a
+    device block, the pipelined pump (production path);
+  - "eager": sources read synchronously in the pump, never pipelined (for
+    debugging; the analog of the reference's single-process scheduler).
+    The port has no jit, so the segments are the same and the output is
+    the fused run's bit for bit.
+
+With a tracer (``Runner(trace=True)`` or ``LUARADIO_TPU_TRACE=1``,
+core/trace.py) the pump records the spans ``sources.read``,
+``sources.wait``, ``segment[i].dispatch`` and ``host[i].process``.
 """
 
 from __future__ import annotations
@@ -37,8 +49,11 @@ import torch
 
 from luaradio_tpu_torch.core.block import (Block, HostSourceBlock,
                                            SignalSourceBlock, SinkBlock)
+from luaradio_tpu_torch.core import trace as trace_mod
 from luaradio_tpu_torch.core.composite import CompositeBlock, Graph, PortRef
 from luaradio_tpu_torch.ops.complexutil import to_device
+
+MODES = ("fused", "eager")
 
 
 def _to_host(value, n_valid=None, masked=False):
@@ -255,7 +270,9 @@ class _Prefetcher:
 
 class Runner:
     """Runs a flow graph on one device (``device=None`` is the CUDA card;
-    ``"cpu"`` runs the plain path).
+    ``"cpu"`` runs the plain path) in ``mode`` "fused" or "eager" (module
+    docstring); ``trace`` None reads LUARADIO_TPU_TRACE.  ``mesh`` other
+    than None raises: time sharding is a later slice of the port.
 
     ``channels=C`` runs it as a bank of C channels (module docstring).
     It is taken from the graph's BankSource when not given; a BankSource
@@ -263,10 +280,22 @@ class Runner:
     and so does a host block that feeds a device block (its per-channel
     output has no common length to batch)."""
 
-    def __init__(self, top: CompositeBlock, chunk_size: int | None = None,
-                 optimize: bool = True, device=None,
-                 channels: int | None = None):
+    def __init__(self, top: CompositeBlock, mode: str = "fused",
+                 chunk_size: int | None = None, trace: bool | None = None,
+                 optimize: bool = True, mesh=None,
+                 channels: int | None = None, *, device=None):
         from luaradio_tpu_torch.blocks.sources.bank import BankSource
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r} (choices: "
+                             f"{', '.join(MODES)})")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: time sharding over several cards is not ported yet "
+                "(ROADMAP queue 1, time sharding and multihost)")
+        self.mode = mode
+        if trace is None:
+            trace = trace_mod.enabled_by_env()
+        self.tracer = trace_mod.Tracer() if trace else None
         self.graph = g = Graph(top, chunk_size=chunk_size, optimize=optimize,
                                device=device)
         self.device = g.device
@@ -349,11 +378,11 @@ class Runner:
                    if dev else None)
             self.stage_plan.append((seg, host))
 
-        # Pipelined pumping: when no device block consumes a host block's
-        # output, the device segments of chunk k are queued before the host
-        # tail of chunk k-1 runs.  Mid-graph host stages feeding device
-        # blocks force lockstep order.
-        self.pipelined = all(
+        # Pipelined pumping (fused mode): when no device block consumes a
+        # host block's output, the device segments of chunk k are queued
+        # before the host tail of chunk k-1 runs.  Mid-graph host stages
+        # feeding device blocks force lockstep order.
+        self.pipelined = mode == "fused" and all(
             c.block.domain != "device"
             for (_, hosts) in self.stage_plan for h in hosts
             for oi in range(len(h.outputs))
@@ -374,9 +403,9 @@ class Runner:
 
     # ------------------------------------------------------------------
     def _prefetch_put(self, key: str, value):
-        """Read-ahead hook: copy payloads that only device blocks consume
-        to the device (the graph's device, named explicitly: this runs on
-        the read-ahead thread)."""
+        """Copy payloads that only device blocks consume to the device
+        (the graph's device, named explicitly: in fused mode this runs on
+        the read-ahead thread, in eager mode on the pump)."""
         if key not in self._transfer_keys or not isinstance(value, np.ndarray):
             return value
         return self._to_device(value)
@@ -387,18 +416,31 @@ class Runner:
         return to_device(arr, self.device)
 
     def _next_chunk(self):
-        """One chunk of source data, via the read-ahead thread (lazily
-        started).  When every source is device-resident there is no host
-        read or copy to overlap, so the pump reads the windows itself."""
+        """One chunk of source data, via the read-ahead thread in fused
+        mode (lazily started) or read by the pump itself in eager mode.
+        When every source is device-resident there is no host read or copy
+        to overlap, so the pump reads the windows itself."""
         if not self.sources:
             return {}, {}, False
-        if all(id(s) in self._resident_srcs for s in self.sources):
-            return self._read_sources()
+        if self.mode == "eager" or all(id(s) in self._resident_srcs
+                                       for s in self.sources):
+            chunk = self._traced("sources.read", self._read_sources)
+            if chunk is not None:
+                values, nvalid, eof = chunk
+                chunk = ({k: self._prefetch_put(k, v)
+                          for k, v in values.items()}, nvalid, eof)
+            return chunk
         if self._prefetcher is None:
-            self._prefetcher = _Prefetcher(self._read_sources,
-                                           self._prefetch_put,
-                                           budget=self._chunk_budget)
-        return self._prefetcher.get()
+            self._prefetcher = _Prefetcher(
+                lambda: self._traced("sources.read", self._read_sources),
+                self._prefetch_put, budget=self._chunk_budget)
+        return self._traced("sources.wait", self._prefetcher.get)
+
+    def _traced(self, name, fn, *args):
+        if self.tracer is None:
+            return fn(*args)
+        with self.tracer.span(name):
+            return fn(*args)
 
     def _read_sources(self):
         """Read one chunk from every host source.  Returns (values, nvalid,
@@ -578,15 +620,17 @@ class Runner:
             return None
         values, nvalid, eof = chunk
         fetches: list = []
-        for seg, _ in self.stage_plan:
+        for i, (seg, _) in enumerate(self.stage_plan):
             if seg is not None:
-                self._run_segment(seg, values, nvalid, fetches)
+                self._traced(f"segment[{i}].dispatch", self._run_segment,
+                             seg, values, nvalid, fetches)
         return values, nvalid, eof, fetches
 
     def _finish_chunk(self, values, nvalid, fetches):
         """Phase 2: the host tail (waits for this chunk's copies)."""
-        for _, host_blocks in self.stage_plan:
-            self._run_hosts(host_blocks, values, nvalid, fetches)
+        for i, (_, host_blocks) in enumerate(self.stage_plan):
+            self._traced(f"host[{i}].process", self._run_hosts,
+                         host_blocks, values, nvalid, fetches)
         self.chunks_processed += 1
 
     def _pump_once(self) -> bool:
@@ -595,11 +639,13 @@ class Runner:
         if chunk is None:
             return False
         values, nvalid, eof = chunk
-        for seg, host_blocks in self.stage_plan:
+        for i, (seg, host_blocks) in enumerate(self.stage_plan):
             fetches: list = []
             if seg is not None:
-                self._run_segment(seg, values, nvalid, fetches)
-            self._run_hosts(host_blocks, values, nvalid, fetches)
+                self._traced(f"segment[{i}].dispatch", self._run_segment,
+                             seg, values, nvalid, fetches)
+            self._traced(f"host[{i}].process", self._run_hosts,
+                         host_blocks, values, nvalid, fetches)
         self.chunks_processed += 1
         return not eof
 
@@ -696,4 +742,4 @@ class Runner:
             raise err
 
 
-__all__ = ["Runner", "Segment", "broadcast_state"]
+__all__ = ["MODES", "Runner", "Segment", "broadcast_state"]

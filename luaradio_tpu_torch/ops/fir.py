@@ -11,6 +11,10 @@ matrices.
 * ``fir_decimate`` — the same filter computing only every D-th output
   (a strided convolution), which the graph optimizer (core/optimize.py)
   folds FIR/IIR -> Downsampler chains into.
+* ``fir_fft`` — FFT overlap-save (the JAX package's, on ``torch.fft``):
+  frames of 2L samples hop by L, each multiplied by the taps' spectrum;
+  the carried state is the last L input samples.  FIR blocks take it with
+  ``use_fft=True``.
 
 The reference products run at float32 (``Precision.HIGHEST``).  cuDNN
 convolutions default to TF32 on the card, which keeps ~3 decimal digits,
@@ -147,5 +151,66 @@ def iir_to_fir_taps(b_taps: np.ndarray, a_taps: np.ndarray,
     return h[:last + 1]
 
 
+# ---------------------------------------------------------------------------
+# FFT overlap-save
+# ---------------------------------------------------------------------------
+
+def fft_frame_length(num_taps: int, min_l: int = 1024) -> int:
+    """Frame hop L (a power of two >= max(min_l, 4 M)); the FFT size is
+    2L.  Input chunks must be a multiple of L."""
+    l = min_l
+    while l < 4 * num_taps:
+        l *= 2
+    return l
+
+
+def fir_fft_freq_taps(taps: np.ndarray, l: int, real_input: bool) -> np.ndarray:
+    """The taps' frequency response at FFT size 2L (float64 on the host,
+    stored as complex64): an rfft for real taps on a real input, else a
+    full fft."""
+    n = 2 * l
+    taps = np.asarray(taps, dtype=np.complex128 if np.iscomplexobj(taps)
+                      else np.float64)
+    if real_input and not np.iscomplexobj(taps):
+        return np.fft.rfft(taps, n).astype(np.complex64)
+    return np.fft.fft(taps, n).astype(np.complex64)
+
+
+def fir_fft_init_state(l: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """Carried state: the last L input samples (zeros initially)."""
+    return torch.zeros((l,), dtype=dtype, device=device)
+
+
+def fir_fft(x: torch.Tensor, h_freq: torch.Tensor, tail: torch.Tensor,
+            real_in_real_taps: bool):
+    """Overlap-save FFT convolution.
+
+    x: [..., N] with N % L == 0; h_freq: the taps' spectrum at 2L
+    (:func:`fir_fft_freq_taps`, as a complex64 tensor); tail: [..., L]
+    the last L input samples.  Returns (y [..., N], new_tail): float32
+    for a real input and real taps, else complex64."""
+    l = tail.shape[-1]
+    n = x.shape[-1]
+    if n % l:
+        raise ValueError(f"fir_fft: chunk {n} not a multiple of the frame "
+                         f"hop {l}")
+    nb = n // l
+    xin = torch.cat([tail.to(x.dtype).expand(x.shape[:-1] + (l,)), x],
+                    dim=-1)
+    lead = xin.shape[:-1]
+    x2 = xin.reshape(lead + (nb + 1, l))
+    frames = torch.cat([x2[..., :-1, :], x2[..., 1:, :]], dim=-1)
+    if real_in_real_taps:
+        spec = torch.fft.rfft(frames, dim=-1)
+        yf = torch.fft.irfft(spec * h_freq, n=2 * l, dim=-1)
+    else:
+        spec = torch.fft.fft(frames.to(torch.complex64), dim=-1)
+        yf = torch.fft.ifft(spec * h_freq, dim=-1)
+    y = yf[..., l:].reshape(lead + (n,))
+    out_dtype = torch.float32 if real_in_real_taps else torch.complex64
+    return y.to(out_dtype), x[..., n - l:]
+
+
 __all__ = ["fp32_exact", "fir_init_state", "fir_direct", "fir_decimate",
-           "combine_taps", "iir_to_fir_taps"]
+           "combine_taps", "iir_to_fir_taps", "fft_frame_length",
+           "fir_fft_freq_taps", "fir_fft_init_state", "fir_fft"]

@@ -24,6 +24,10 @@ JAX package chooses with ``lax.cond``; here the choice is a host branch on
 the guard, one device-to-host sync per chunk.  A bank [C, N] (the JAX
 package vmaps the block over C) is solved row by row with the same rules,
 from one read of the C flags.
+
+:func:`pll_newton_scan` is the JAX package's per-segment Newton solver
+with the sequential kernel as its fallback (only tests and callers that
+ask for it use it; PLLBlock takes pll_hybrid).
 """
 
 from __future__ import annotations
@@ -247,4 +251,149 @@ def pll_hybrid(x, state, alpha, beta, fmin, fmax, mult: int, sequential,
 pll_hybrid.host_reads = 0
 
 
-__all__ = ["pll_linear", "pll_hybrid"]
+def pll_newton_segment(x, state, alpha, beta, fmin, fmax, mult: int,
+                       iters: int = 6, tol: float = 3e-4):
+    """Solve the exact nonlinear PLL recurrence on one segment in parallel
+    by Newton/Picard iteration, with no lock assumption (the JAX
+    package's pll_newton_segment).
+
+    The loop's only nonlinearity is the wrapped phase detector, whose
+    derivative is 1 almost everywhere, so linearizing around a guess
+    trajectory gives the locked loop's constant 2x2 affine recurrence,
+    driven by the wrapped residual w = angle(x_hat conj(u)) and the
+    guess's increments.  Each iteration solves it with two first-order
+    complex scans and rotates the guess's unit phasors by the correction.
+    The fixed point is checked after the fact, elementwise: the phasors
+    must satisfy u[n+1] = u[n] exp(i (f1[n] + alpha w[n])) with the
+    frequency rebuilt from the errors alone within ``tol``, and the clamp
+    must stay inactive.
+
+    x: [L] complex64; state (phi_l, phi_m, freq) float32 scalars.
+    Returns (valid (a 0-d bool tensor), new_state, out [L] complex64,
+    err [L] float32)."""
+    f32, c64 = torch.float32, torch.complex64
+    dev = x.device
+    alpha = np.float32(alpha)
+    beta = np.float32(beta)
+    n = x.shape[-1]
+    p0, m0, f0 = (torch.as_tensor(s, dtype=f32, device=dev) for s in state)
+
+    mag = x.abs()
+    has = mag > 0
+    xhat = torch.where(has, x / torch.clamp(mag, min=1e-30),
+                       torch.ones_like(x)).to(c64)
+
+    lam, vmat, vinv = _eigen_setup(alpha, beta)
+    w_in = vinv @ np.array([alpha + beta, beta], np.complex128)
+    g_in = vinv @ np.array([-1.0, 0.0], np.complex128)
+    z0_coef = vinv[:, 1]                      # s[0] = (0, f0)
+
+    def angle(z):
+        return torch.atan2(z.imag, z.real)
+
+    # guess: constant-frequency extrapolation u[n] = exp(i (p0 + f0 n)),
+    # n = 0..L (one extra sample carries the segment's exit phase)
+    steps = torch.cat([torch.ones(1, dtype=c64, device=dev),
+                       _rot(f0).to(c64).expand(n)])
+    u = _rot(p0).to(c64) * torch.cumprod(steps, 0)
+
+    f_dev = f0.to(c64)
+    for _ in range(iters):
+        w = torch.where(has, angle(xhat * torch.conj(u[:-1])), 0.0)
+        g = angle(u[1:] * torch.conj(u[:-1]))
+        d = torch.zeros(n, dtype=f32, device=dev)
+        for k in range(2):
+            uin = (complex(np.complex64(w_in[k])) * w.to(c64)
+                   + complex(np.complex64(g_in[k])) * g.to(c64))
+            z_init = complex(np.complex64(z0_coef[k])) * f_dev
+            zk = linrec_first_order(uin, np.complex64(lam[k]), z_init)
+            d = d + (complex(np.complex64(vmat[0, k])) * zk).real
+        u = u * _rot(torch.cat([d.new_zeros(1), d]))
+        u = u * (1.5 - 0.5 * (u.real * u.real + u.imag * u.imag)).to(c64)
+
+    # exact elementwise validation of the fixed point
+    w = torch.where(has, angle(xhat * torch.conj(u[:-1])), 0.0)
+    f1 = f0 + float(beta) * torch.cumsum(w, 0)   # freq after update at n
+    inc = f1 + float(alpha) * w                  # phase increment at n
+    resid = angle(u[1:] * torch.conj(u[:-1]) * _rot(-inc))
+    valid = ((resid.abs().max() < float(np.float32(tol)))
+             & (f1.max() <= float(np.float32(fmax)))
+             & (f1.min() >= float(np.float32(fmin))))
+
+    # outputs: dphi_m = mult inc + alpha (1 - mult) w, composed as phasors
+    s_cum = torch.cat([w.new_zeros(1), torch.cumsum(w, 0)])
+    base = _rot(m0 - float(mult) * p0)
+    um = _phasor_pow(u, mult) * _rot(float(alpha * np.float32(1 - mult))
+                                     * s_cum).to(c64)
+    out = (base * um[:-1]).to(c64)
+
+    new_state = (angle(u[-1]), angle(base * um[-1]),
+                 torch.clamp(f1[-1], float(np.float32(fmin)),
+                             float(np.float32(fmax))))
+    return valid, new_state, out, w
+
+
+def _pow2_segment(n: int, cap: int = 1024) -> int:
+    """Largest power-of-two divisor of n, capped."""
+    s = 1
+    while n % (s * 2) == 0 and s < cap:
+        s *= 2
+    return s
+
+
+def pll_newton_scan(x, state, alpha, beta, fmin, fmax, mult: int, sequential,
+                    seg_len: int | None = None, iters: int = 6):
+    """Per-segment Newton solve with the sequential fallback, over a chunk
+    x [N] complex64 (the JAX package's pll_newton_scan): a segment whose
+    fixed point fails its check runs ``sequential(state, x) -> (state',
+    (out, err))`` (K3 on the card) from the same entering state, so one
+    unlocked region serializes only its own segment.
+
+    The JAX package chooses with ``lax.cond`` inside ``lax.scan``; here
+    the choice is a host branch, one device-to-host read of the
+    segment's ``valid`` flag a segment: a sync a segment
+    (``pll_newton_scan.host_reads`` counts them).  Segments are the
+    largest power-of-two divisor of N up to 1024; below 64 the whole
+    chunk runs ``sequential``.  Returns (state', (out, err))."""
+    n = x.shape[-1]
+    if seg_len is None:
+        seg_len = _pow2_segment(n)
+
+    def seq(st, xs):
+        st2, (o, e) = sequential(st, xs)
+        return (tuple(torch.as_tensor(v, dtype=torch.float32,
+                                      device=x.device).reshape(())
+                      for v in st2),
+                o.to(torch.complex64), e.to(torch.float32))
+
+    if seg_len < 64:
+        st, o, e = seq(state, x)
+        return st, (o, e)
+    carry = tuple(torch.as_tensor(v, dtype=torch.float32, device=x.device)
+                  .reshape(()) for v in state)
+    outs, errs = [], []
+    for k in range(n // seg_len):
+        xs = x[k * seg_len:(k + 1) * seg_len]
+        ok, n_state, n_out, n_err = pll_newton_segment(
+            xs, carry, alpha, beta, fmin, fmax, mult, iters=iters)
+        pll_newton_scan.host_reads += 1
+        if bool(ok):
+            carry = n_state
+            outs.append(n_out)
+            errs.append(n_err)
+            pll_newton_scan.segments[0] += 1
+        else:
+            carry, o, e = seq(carry, xs)
+            outs.append(o)
+            errs.append(e)
+            pll_newton_scan.segments[1] += 1
+    return carry, (torch.cat(outs), torch.cat(errs))
+
+
+pll_newton_scan.host_reads = 0
+#: segments solved by Newton and segments that fell back, so far
+pll_newton_scan.segments = [0, 0]
+
+
+__all__ = ["pll_linear", "pll_hybrid", "pll_newton_segment",
+           "pll_newton_scan"]

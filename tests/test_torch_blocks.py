@@ -143,9 +143,17 @@ def test_block_resumes_from_jax_state(name):
 
 
 def test_iir_above_first_order_is_refused():
-    blk = tl.IIRFilterBlock([1.0], [1.0, -0.5, 0.1])
-    with pytest.raises(NotImplementedError, match="order 2"):
-        _setup(blk, False, "cpu")
+    """Order 2 runs, carries a state of [2] and gives the JAX block's
+    output (the name predates the order-p scan; the orders' own tests
+    are in test_torch_signal_rest.py)."""
+    b, a = [1.0], [1.0, -0.5, 0.1]
+    blk = _setup(tl.IIRFilterBlock(b, a), False, "cpu")
+    jblk = _setup(jl.IIRFilterBlock(b, a), False)
+    x = _signal(9, complex_=False)
+    _, got = blk.process(blk.init_state(), torch.from_numpy(x))
+    _, exp = jblk.process(jblk.init_state(), jnp.asarray(x))
+    assert blk.init_state().shape == (2,)
+    _close(got.numpy(), np.asarray(exp))
 
 
 def _graph(mod, src_path, composite, sink_cls):

@@ -427,7 +427,7 @@ def test_parse_spec_and_unknown_names():
         "rx_pocsag", "rx_raw", "rx_rds", "rx_ssb", "rx_wbfm"]
     assert sorted(applications.INPUTS) == ["iqfile"]
     assert sorted(applications.OUTPUTS) == ["benchmark", "iqfile", "json",
-                                            "print", "wavfile"]
+                                            "print", "realfile", "wavfile"]
 
 
 def test_cli_version_and_platform(capsys):
