@@ -8,7 +8,8 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
 
 1. device: the card's name and power limit (nvidia-smi) and count;
 2. build: nvcc builds every kernel source and the measurement build of
-   K1's halves, all at once;
+   K1's halves, all at once, and cc the host wire conversions
+   (native/src/format_conv.c);
 3. K1 / K2: each kernel at the flagship's full width (8 channels x 4 194 304
    samples, D = 8, K = 640), on a ragged chunk, on an input 8 bytes off a
    16-byte boundary and under a compact plan (K = 16 384), held against
@@ -136,13 +137,37 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
 23. newton: pll_newton_scan with K3 as its fallback on a phase-step input
     (some segments converge, some fall back): K3 launches and the result
     equals the same call with K3's twin within 1e-5;
-24. the kernels line and the final status line.
+24. io-wire: every SDR driver's wire type (u8, s8, the five s16 scales)
+    over all of its codes: device_ingest on the card equal to read()'s
+    host conversion bit for bit;
+25. live: the port's rtlsdr_wbfm_mono, rtlsdr_am_synchronous (K3 at
+    multiplier 1) and rtlsdr_rds (K3 at multiplier 3) example modules on
+    the card, fed by an in-process fake librtlsdr paced at 1 102 500
+    complex samples/s with the graph, am and rds phases' captures (4, 4
+    and 8 s; u8 wire) into a fake libpulse-simple (DISPLAY set) or the
+    RDS JSON: the tone within 50 Hz or the RDS groups held as in phase
+    13, no ring overflow or dropped sample, the source on the wire path,
+    K3's launches counted (at least one on the two PLL paths), the wall
+    time within 1.25x the capture, the card's busy share (torch.profiler,
+    device activity);
+26. net: the README mono receiver fed over loopback TCP and a UNIX
+    socket by NetworkClientSource and NetworkServerSource (u8 and
+    f32le, sent unpaced), each audio equal to the IQ file's bit for bit;
+    rx_wbfm --mono into -o networkserver (equal to -o realfile) and
+    rx_rds into -o networkclient,format=json (equal to phase 13's
+    packets) through the CLI;
+27. plot-tx: the gnuplot spectrum and waterfall sinks fed from the card
+    through a fake gnuplot on PATH (the peak on the tone's bin), and
+    HackRFSink fed by the FM modulator through a fake TX library (the s8
+    wire equal to the host conversion);
+28. the kernels line and the final status line.
 
 Launch counts are zeroed just before the flagship, the K2 graph run, the
 stereo CLI run, the overlap path run, the rx_am --synchronous run, the
 rx_rds run, the bank-mono K2 run, the two bank-stereo runs, each block
-row, the FM round trip under the K2 rule and the newton call, and read
-just after: each kernel must have run on its path.  Any failure
+row, the FM round trip under the K2 rule, the newton call and each paced
+live example, and read just after: each kernel must have run on its
+path.  Any failure
 raises (non-zero exit); a hang ends the run with a traceback after 480 s.
 ``--profile PATH`` also writes a torch.profiler table of one mono graph
 run to PATH, of the stereo run to PATH.stereo.txt, of the rx_am
@@ -154,13 +179,18 @@ PATH.bank_stereo.txt.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import faulthandler
+import io
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
 
@@ -175,12 +205,14 @@ from luaradio_tpu_torch import (VARICODE, BankSource, BenchmarkSink,
                                 IQFileSource, LowpassFilterBlock,
                                 MultiplyConjugateBlock, Output,
                                 PilotRecoveryBlock, POCSAGReceiver,
-                                RootRaisedCosineFilterBlock, SinkBlock,
-                                TunerBlock, UniformRandomSource, WAVFileSink,
-                                WBFMMonoDemodulator, WBFMStereoDemodulator)
+                                RootRaisedCosineFilterBlock, RtlSdrSource,
+                                SinkBlock, TunerBlock, UniformRandomSource,
+                                WAVFileSink, WBFMMonoDemodulator,
+                                WBFMStereoDemodulator)
 import luaradio_tpu_torch as lr
 from luaradio_tpu_torch import cli
 from luaradio_tpu_torch.blocks.protocol import ax25 as ax25_proto
+from luaradio_tpu_torch.blocks.sinks import audio
 from luaradio_tpu_torch.blocks.protocol import ert as ert_proto
 from luaradio_tpu_torch.blocks.protocol import pocsag as pocsag_proto
 from luaradio_tpu_torch.blocks.protocol import rds as rds_proto
@@ -198,10 +230,12 @@ from luaradio_tpu_torch.parallel.rds import RDSBank
 from luaradio_tpu_torch.parallel.wbfm import WBFMMonoBank, WBFMStereoBank
 from luaradio_tpu_torch.types import number_to_bits
 from luaradio_tpu_torch.utils import format as format_utils
+from luaradio_tpu_torch.utils import native
+from luaradio_tpu_torch.utils.network import NetworkClient, NetworkServer
 
 T0 = time.monotonic()
 #: a hang ends the run with a traceback after this many seconds; a whole
-#: run, build included, takes about two minutes on the card (three with
+#: run, build included, takes about three minutes on the card (four with
 #: --profile)
 HANG_S = 480
 #: H100 SXM data sheet: HBM rate, and fp32 rate outside the tensor cores
@@ -266,6 +300,16 @@ BLOCK_OVERRIDES = {
 }
 HOLD_CHUNK, HOLD_CHUNKS = 1 << 18, 2
 NEWTON_N = 1 << 16
+#: the live phase: the mono and AM captures' seconds (the RDS capture is
+#: DIGITAL_S), and the limit on a paced run's wall time over the
+#: capture's length
+LIVE_S, LIVE_SLACK = 4, 1.25
+#: the net phase: the limit on any socket wait or thread join
+NET_TIMEOUT = 60.0
+#: the plot-tx phase: the plot's rate, PSD size and the tone's bin (6
+#: kHz); the transmit rate and chunk
+PLOT_RATE, PLOT_N, PLOT_BIN = 48000.0, 1024, 128
+TX_RATE, TX_CHUNK = 2e6, 1 << 16
 
 
 def log(phase: str, msg: str):
@@ -1297,6 +1341,15 @@ def am_pll_params():
     return blk._alpha, blk._beta, blk._freq_min, blk._freq_max
 
 
+def am_capture(seconds):
+    """``seconds`` at RATE: NOISE_S s of noise, then a carrier at 0 Hz
+    modulated 50 % by AM_TONE at ~30 dB SNR (complex64)."""
+    n, n0 = seconds * RATE, int(NOISE_S * RATE)
+    t = np.arange(n) / RATE
+    z = (1 + 0.5 * np.sin(2 * np.pi * AM_TONE * t)) * np.exp(1j * 0.7)
+    return noisy(z, n0, 12)
+
+
 def phase_am(tmp, dev, profile):
     """rx_am --synchronous through the CLI over an AM capture (0.5 s of
     noise, then a carrier at the tuned frequency modulated 50 % by a
@@ -1304,12 +1357,8 @@ def phase_am(tmp, dev, profile):
     before the run), and it is held against its twin on every chunk it
     took, recorded as each entered the PLL.  Then rx_am's envelope
     receiver on the same capture.  Returns the K3 record of the path."""
-    n, n0 = AM_S * RATE, int(NOISE_S * RATE)
-    t = np.arange(n) / RATE
-    z = (1 + 0.5 * np.sin(2 * np.pi * AM_TONE * t)) * np.exp(1j * 0.7)
-    del t
-    path = write_iq(tmp, "am.f32.iq", noisy(z, n0, 12))
-    del z
+    n = AM_S * RATE
+    path = write_iq(tmp, "am.f32.iq", am_capture(AM_S))
     log("am", f"capture: {n} samples ({AM_S} s) at {RATE} S/s, f32le; "
               f"noise for the first {NOISE_S} s, then AM 50 % by "
               f"{AM_TONE:.0f} Hz at ~30 dB SNR")
@@ -1678,20 +1727,11 @@ def phase_rds(tmp, dev, profile=None):
                              f"scan launches {scans} ({len(scanned)} "
                              f"recorded)")
     packets = read_json_lines(out)
-    groups = {g for _, g in sent}
-    got = [tuple(p["data"].get("frame", ())) for p in packets]
-    stray = [p for p, g in zip(packets, got)
-             if p["data"].get("type") != "raw" or g not in groups]
-    late = [g for start, g in sent if start >= 1.5]
-    found = len(set(late) & set(got))
-    if stray or found < 0.8 * len(late):
-        raise AssertionError(f"rx_rds: {found} of the {len(late)} groups "
-                             f"sent after 1.5 s decoded (limit 80 %); "
-                             f"{len(stray)} packets not sent: {stray[:3]}")
+    found, late = hold_rds_packets("rx_rds", packets, sent)
     chunk = seen[0][0]
     log("rds", f"CLI rx_rds: {n / dt / 1e6:.2f} M complex samples/s end "
                f"to end ({dt:.3f} s); {len(packets)} packets, {found} of "
-               f"the {len(late)} groups sent after 1.5 s (limit 80 %), "
+               f"the {late} groups sent after 1.5 s (limit 80 %), "
                f"none unsent; K3 launches {launches}, overlap scan "
                f"launches {scans} over {len(seen)} PLL chunks of {chunk} "
                f"samples (tiers: linear {tiers.count(1)}, overlap "
@@ -1713,7 +1753,25 @@ def phase_rds(tmp, dev, profile=None):
     return {"launches": launches, "chunk": chunk, "max_abs_err": err,
             "x": taken[0][0], "state": torch.stack(taken[0][1]).to(dev),
             "sps": n / dt, "tiers": [tiers.count(k) for k in (1, 2, 3)],
-            "overlap_launches": scans, "overlap_err": scan_err}
+            "overlap_launches": scans, "overlap_err": scan_err,
+            "packets": packets}
+
+
+def hold_rds_packets(label, packets, sent):
+    """80 % of the groups sent after 1.5 s must come out as raw packets,
+    and no packet may carry a group that was not sent.  Returns (found,
+    groups sent after 1.5 s)."""
+    groups = {g for _, g in sent}
+    got = [tuple(p["data"].get("frame", ())) for p in packets]
+    stray = [p for p, g in zip(packets, got)
+             if p["data"].get("type") != "raw" or g not in groups]
+    late = [g for start, g in sent if start >= 1.5]
+    found = len(set(late) & set(got))
+    if stray or found < 0.8 * len(late):
+        raise AssertionError(f"{label}: {found} of the {len(late)} groups "
+                             f"sent after 1.5 s decoded (limit 80 %); "
+                             f"{len(stray)} packets not sent: {stray[:3]}")
+    return found, len(late)
 
 
 def time_k3_rds(rds, dev, ns_step):
@@ -3376,6 +3434,585 @@ def newton_input(n=NEWTON_N, seg=1024):
     return x.astype(np.complex64)
 
 
+# -- the port's outside world: SDR wire, live examples, network,
+# -- plot and transmit sinks -------------------------------------------------
+
+#: every SDR driver with a wire ring: (class, constructor arguments before
+#: frequency and rate)
+WIRE_DRIVERS = {
+    "rtlsdr": (lr.RtlSdrSource, ()), "hackrf": (lr.HackRFSource, ()),
+    "airspy": (lr.AirspySource, ()), "hydrasdr": (lr.HydraSDRSource, ()),
+    "bladerf": (lr.BladeRFSource, ()), "sdrplay": (lr.SDRplaySource, ()),
+    "uhd": (lr.UHDSource, ("addr=x",)),
+    "soapysdr": (lr.SoapySDRSource, ("driver=x",)),
+}
+
+
+def phase_io_wire(dev):
+    """Every SDR driver's wire type over all of its codes (256 for the
+    8-bit types, 65 536 for s16; each code as I and as Q): device_ingest
+    on the card against read()'s host conversion of the same ring, bit
+    for bit.  Returns {driver: max |card - host|} (0 everywhere)."""
+    errs = {}
+    for name, (cls, args) in WIRE_DRIVERS.items():
+        info = np.iinfo(cls._wire_dtype)
+        codes = np.arange(info.min, info.max + 1).astype(cls._wire_dtype)
+        raw = np.concatenate([codes, codes[::-1]])
+        src = cls(*args, 1e8, 1e6)
+        src._make_ring()
+        src.ring.write(raw)
+        host = src.read(len(raw) // 2)
+        card = src.device_ingest()(torch.from_numpy(raw).to(dev))
+        err = float(np.max(np.abs(card.cpu().numpy() - host)))
+        if card.dtype != torch.complex64 or err != 0.0:
+            raise AssertionError(f"io-wire {name}: {card.dtype}, max |card "
+                                 f"- host| {err} (limit 0)")
+        errs[name] = err
+    log("io-wire", f"device_ingest on the card equals read()'s host "
+                   f"conversion bit for bit over every code: "
+                   f"{json.dumps(errs)}")
+    return errs
+
+
+class FakeRtlSdr:
+    """An in-process librtlsdr serving ``wire`` (u8 I/Q) from
+    rtlsdr_read_sync.  Paced (``rate`` complex samples/s), a read returns
+    when its last sample is due, on an absolute schedule from the first
+    read, as the radio's would; unpaced, at once.  At the end of the
+    capture a read fails (-1), as it does when the device is gone."""
+
+    def __init__(self, wire, rate=None):
+        self.wire, self.rate, self.pos, self.t0 = wire, rate, 0, None
+
+    def __getattr__(self, name):
+        if not name.startswith("rtlsdr_"):
+            raise AttributeError(name)
+        return lambda *args: 0
+
+    def rtlsdr_open(self, devp, index):
+        ctypes.cast(devp, ctypes.POINTER(ctypes.c_void_p))[0] = \
+            ctypes.c_void_p(0x171)
+        return 0
+
+    def rtlsdr_read_sync(self, dev, buf, nbytes, gotp):
+        if self.pos >= len(self.wire):
+            return -1
+        seg = self.wire[self.pos:self.pos + nbytes]
+        if self.rate:
+            if self.t0 is None:
+                self.t0 = time.monotonic()
+            due = self.t0 + (self.pos + len(seg)) / 2 / self.rate
+            time.sleep(max(0.0, due - time.monotonic()))
+        ctypes.memmove(buf, seg.ctypes.data, len(seg))
+        ctypes.cast(gotp, ctypes.POINTER(ctypes.c_int))[0] = len(seg)
+        self.pos += len(seg)
+        return 0
+
+
+class FakePulse:
+    """An in-process libpulse-simple that keeps what is played."""
+
+    def __init__(self):
+        self.audio, self.spec = bytearray(), None
+
+    def pa_simple_new(self, server, app, direction, dev, name, spec, *rest):
+        s = ctypes.cast(spec, ctypes.POINTER(audio._pa_sample_spec)).contents
+        self.spec = (s.format, s.rate, s.channels)
+        return 0x5A
+
+    def pa_simple_write(self, pa, data, n, err):
+        self.audio += data[:n]
+        return 0
+
+    def pa_simple_drain(self, pa, err):
+        return 0
+
+    def pa_simple_free(self, pa):
+        pass
+
+
+def u8_wire(z, shift_hz=0.0):
+    """Complex samples at RATE, moved up by ``shift_hz``, as the RTL-SDR's
+    u8 I/Q."""
+    if shift_hz:
+        z = z * np.exp(2j * np.pi * shift_hz / RATE * np.arange(len(z)))
+    f = z.astype(np.complex64).view(np.float32)
+    return np.clip(np.round(f * 127.5 + 127.5), 0, 255).astype(np.uint8)
+
+
+def _device_key(events):
+    return ("self_device_time_total"
+            if len(events) and hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+
+
+def device_ms(prof) -> float:
+    """The device time a torch.profiler run recorded, in ms."""
+    events = prof.key_averages()
+    key = _device_key(events)
+    return sum(getattr(e, key) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def run_example(module, wire, paced, dev, stdout=None):
+    """The example module's graph on the card, its RtlSdrSource fed by a
+    fake librtlsdr serving ``wire`` (paced at RATE or not), PulseAudio
+    replaced by a fake that keeps the audio, standard output (the JSON
+    sinks') sent to ``stdout``.  Paced on the card, the run is traced by
+    torch.profiler (device activity only) for the card's busy share.  Returns (the
+    graph's source, its runner, the fake radio, the fake audio, wall
+    seconds, device ms or None)."""
+    from torch.profiler import ProfilerActivity, profile
+    fake, pulse = FakeRtlSdr(wire, RATE if paced else None), FakePulse()
+    load_pulse = audio._load_pulse
+    RtlSdrSource._injected_lib = fake
+    audio._load_pulse = lambda: pulse
+    top = module.build()
+    src = next(b for b in top._blocks if isinstance(b, RtlSdrSource))
+    traced = paced and torch.device(dev).type == "cuda"
+    prof = (profile(activities=[ProfilerActivity.CUDA]) if traced
+            else contextlib.nullcontext())
+    try:
+        with prof, contextlib.redirect_stdout(stdout or sys.stdout):
+            t0 = time.monotonic()
+            top.start(device=dev)
+            top.wait(timeout=120)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        RtlSdrSource._injected_lib = None
+        audio._load_pulse = load_pulse
+    return src, top._runner, fake, pulse, wall, (device_ms(prof) if traced
+                                                 else None)
+
+
+def live_captures(tmp):
+    """The synthetic captures of the graph, am and rds phases: the 4 s
+    mono FM capture's files and samples (write_capture), the RDS capture's
+    file and groups (write_rds_capture), and as the examples' u8 wire the
+    mono capture (its station already 250 kHz above the tuning), LIVE_S s
+    of the AM capture moved 50 kHz up (rtlsdr_am_synchronous tunes 50 kHz
+    below the station) and the 8 s RDS capture moved 250 kHz up."""
+    paths, n = write_capture(tmp)
+    rds_path, _, sent = write_rds_capture(tmp)
+    wires = {"wbfm_mono": u8_wire(np.fromfile(paths["f32le"], np.complex64)),
+             "am_synchronous": u8_wire(0.55 * am_capture(LIVE_S), 50e3),
+             "rds": u8_wire(0.7 * np.fromfile(rds_path, np.complex64),
+                            250e3)}
+    return paths, n, rds_path, sent, wires
+
+
+def phase_live(dev, wires, sent):
+    """rtlsdr_wbfm_mono, rtlsdr_am_synchronous (K3 at multiplier 1) and
+    rtlsdr_rds (K3 at multiplier 3) as their modules build them, on the
+    card, fed by a fake librtlsdr paced at RATE (after an unpaced warm-up
+    on its first 0.5 s), into a fake libpulse-simple (DISPLAY set) or the
+    RDS JSON lines.  Each run: the source in the runner's wire ingest, no
+    ring overflow and no dropped sample, every sample served, the wall
+    time within LIVE_SLACK x the capture's length; the audio's tone
+    within 50 Hz, or the RDS groups held as in the rds phase; K3's (and
+    the scan's) launches counted, zeroed just before the paced run, and
+    K3 launched on the two PLL paths.  Returns {example: record}."""
+    from luaradio_tpu_torch.examples import (rtlsdr_am_synchronous,
+                                             rtlsdr_rds, rtlsdr_wbfm_mono)
+    modules = {"wbfm_mono": rtlsdr_wbfm_mono,
+               "am_synchronous": rtlsdr_am_synchronous, "rds": rtlsdr_rds}
+    display = os.environ.get("DISPLAY")
+    os.environ["DISPLAY"] = ":0"
+    out = {}
+    try:
+        for name, module in modules.items():
+            wire = wires[name]
+            secs = len(wire) / 2 / RATE
+            run_example(module, wire[:RATE], False, dev,
+                        io.StringIO())                           # warm-up
+            pll.pll_phase.launches = 0
+            pll_overlap.pll_overlap_discard.launches = 0
+            text = io.StringIO()
+            src, runner, fake, pulse, wall, dms = run_example(
+                module, wire, True, dev, text)
+            k3 = pll.pll_phase.launches
+            scans = pll_overlap.pll_overlap_discard.launches
+            rec = {"seconds": secs, "wall_s": wall,
+                   "wall_over_capture": wall / secs,
+                   "device_ms": dms, "busy": dms / 1e3 / wall if dms
+                   else None, "k3_launches": k3, "scan_launches": scans,
+                   "overflows": src.ring.overflows,
+                   "dropped": src.ring.dropped_samples}
+            if (id(src) not in runner._wire_srcs or src.ring.overflows
+                    or src.ring.dropped_samples or fake.pos != len(wire)
+                    or wall > LIVE_SLACK * secs
+                    or (name != "wbfm_mono" and k3 < 1)):
+                raise AssertionError(f"live {name}: {rec}, served "
+                                     f"{fake.pos} of {len(wire)} bytes, "
+                                     f"wire ingest "
+                                     f"{id(src) in runner._wire_srcs}")
+            if name == "rds":
+                packets = [json.loads(ln) for ln in
+                           text.getvalue().splitlines()]
+                found, late = hold_rds_packets("live rds", packets, sent)
+                rec.update(packets=len(packets), found=found, late=late)
+            else:
+                a = np.frombuffer(bytes(pulse.audio), np.float32)
+                rate, tone = (44100, TONE) if name == "wbfm_mono" \
+                    else (22050, AM_TONE)
+                want = round(secs * rate)
+                f, m = tone_margin(a, rate, tone, harmonics=True)
+                if pulse.spec != (5, rate, 1) or len(a) != want or \
+                        abs(f - tone) > 50 or m <= 10:
+                    raise AssertionError(
+                        f"live {name}: PulseAudio {pulse.spec}, {len(a)} "
+                        f"samples (want {want}), {tone:.0f} Hz tone at "
+                        f"{f:.1f} Hz, margin {m:.3g} (limits 50 Hz, 10)")
+                rec.update(tone_hz=f, margin=m)
+            out[name] = rec
+            log("live", f"rtlsdr_{name}: {secs:.1f} s paced at {RATE} S/s "
+                        f"in {wall:.3f} s ({wall / secs:.3f}x, limit "
+                        f"{LIVE_SLACK}x), card busy "
+                        f"{'not measured' if not dms else f'{100 * dms / 1e3 / wall:.2f} %'}"
+                        f"; K3 launches {k3}, scan {scans}; "
+                        f"{json.dumps({k: v for k, v in rec.items() if k not in ('seconds', 'wall_s', 'device_ms', 'busy', 'k3_launches', 'scan_launches')})}")
+    finally:
+        if display is None:
+            del os.environ["DISPLAY"]
+        else:
+            os.environ["DISPLAY"] = display
+    return out
+
+
+def _free_tcp():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return f"127.0.0.1:{port}"
+
+
+def _thread(fn, *args):
+    """Run ``fn(*args)`` on a thread; join() returns its result or raises
+    its error (after NET_TIMEOUT s at most)."""
+    box = {}
+
+    def main():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as exc:  # noqa: BLE001 — raised in join()
+            box["err"] = exc
+    t = threading.Thread(target=main, daemon=True)
+    t.start()
+
+    def join():
+        t.join(NET_TIMEOUT)
+        if t.is_alive():
+            raise AssertionError(f"{fn.__name__}: still running after "
+                                 f"{NET_TIMEOUT} s")
+        if "err" in box:
+            raise box["err"]
+        return box.get("out")
+    return join
+
+
+def serve_once(transport, address, payload, listening):
+    """A one-client server: listen, set ``listening``, accept, send
+    ``payload`` (or, given None, receive until the peer closes), close."""
+    srv = NetworkServer(transport, address)
+    srv.listen()
+    srv.listener.settimeout(NET_TIMEOUT)
+    listening.set()
+    try:
+        srv.accept()
+        srv.sock.settimeout(NET_TIMEOUT)
+        if payload is not None:
+            srv.sock.sendall(payload)
+            return None
+        data = bytearray()
+        while chunk := srv.sock.recv(1 << 20):
+            data += chunk
+        return bytes(data)
+    finally:
+        srv.close()
+
+
+def connect_once(transport, address, payload):
+    """A client: connect (retrying until the server listens), send
+    ``payload`` (or, given None, receive until the server closes),
+    close."""
+    cli_ = NetworkClient(transport, address)
+    deadline = time.monotonic() + NET_TIMEOUT
+    while not cli_.connect():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no server at {address}")
+        time.sleep(0.01)
+    try:
+        cli_.sock.settimeout(NET_TIMEOUT)
+        if payload is not None:
+            cli_.sock.sendall(payload)
+            return None
+        data = bytearray()
+        while chunk := cli_.sock.recv(1 << 20):
+            data += chunk
+        return bytes(data)
+    finally:
+        cli_.close()
+
+
+def mono_net_graph(source, out):
+    """The README receiver from ``source`` into a float32 real file."""
+    top = CompositeBlock()
+    top.connect(source, TunerBlock(-250e3, 200e3, 5), WBFMMonoDemodulator(),
+                DownsamplerBlock(5), lr.RealFileSink(out, "f32le"))
+    return top
+
+
+def phase_net(tmp, dev, paths, n, rds_path, rds_packets):
+    """The network I/O on loopback: (1) the README mono receiver fed by
+    NetworkClientSource(reconnect=False) from a server thread sending the
+    graph phase's 4 s capture unpaced, u8 and f32le, over TCP and a UNIX
+    socket: every sample arrives and the audio equals the same capture
+    through IQFileSource, bit for bit; (2) NetworkServerSource the same
+    way, a client thread sending; (3) the CLI's rx_wbfm --mono into
+    ``-o networkserver:`` with a client thread reading the f32le audio,
+    equal to ``-o realfile`` bit for bit; (4) rx_rds into ``-o
+    networkclient:...,format=json`` with a server thread reading, its
+    packets equal to the rds phase's.  Returns the rates (host clock)."""
+    ref = {}
+    for fmt in ("u8", "f32le"):
+        ref[fmt] = os.path.join(tmp, f"file.{fmt}.f32")
+        mono_net_graph(IQFileSource(paths[fmt], fmt, RATE),
+                       ref[fmt]).run(device=dev)
+    rates = {}
+    for kind in ("client", "server"):
+        for fmt in ("u8", "f32le"):
+            for transport in ("tcp", "unix"):
+                address = (_free_tcp() if transport == "tcp" else
+                           os.path.join(tmp, f"{kind}.{fmt}.sock"))
+                with open(paths[fmt], "rb") as fh:
+                    payload = fh.read()
+                if kind == "client":
+                    listening = threading.Event()
+                    join = _thread(serve_once, transport, address, payload,
+                                   listening)
+                    listening.wait(NET_TIMEOUT)
+                    src = lr.NetworkClientSource(
+                        ComplexFloat32, RATE, transport, address,
+                        format=fmt, reconnect=False)
+                else:
+                    join = _thread(connect_once, transport, address,
+                                   payload)
+                    src = lr.NetworkServerSource(
+                        ComplexFloat32, RATE, transport, address,
+                        format=fmt, reconnect=False)
+                out = os.path.join(tmp, f"net.{kind}.{fmt}.f32")
+                t0 = time.monotonic()
+                mono_net_graph(src, out).run(device=dev)
+                dt = time.monotonic() - t0
+                join()
+                got, exp = (np.fromfile(p, np.float32) for p in
+                            (out, ref[fmt]))
+                if got.shape != (n // 25,) or not np.array_equal(got, exp):
+                    raise AssertionError(
+                        f"net {kind} {fmt} {transport}: {got.shape} audio "
+                        f"samples (want {n // 25}), max |net - file| "
+                        f"{np.max(np.abs(got - exp)) if got.shape == exp.shape else 'n/a'}")
+                rates[f"{kind}_{fmt}_{transport}"] = n / dt
+                log("net", f"Network{kind.title()}Source {fmt} over "
+                           f"{transport}: {n} samples in {dt:.3f} s, "
+                           f"{n / dt / 1e6:.2f} M complex samples/s "
+                           f"(host clock); audio equal to the IQ file's "
+                           f"bit for bit")
+    # (3) the CLI's networkserver output against its realfile output
+    base = os.path.join(tmp, "base.f32.iq")
+    z = np.fromfile(paths["f32le"], np.complex64)
+    (z * np.exp(-2j * np.pi * 250e3 / RATE * np.arange(n))).astype(
+        np.complex64).tofile(base)   # the station at the tuned frequency
+    del z
+    argv = ["-a", "rx_wbfm", "-i", f"iqfile:{base},rate={RATE}", "-o"]
+    real = os.path.join(tmp, "cli.f32")
+    run_cli(argv + [f"realfile:{real}", "100e6", "--mono"], dev)
+    address = _free_tcp()
+    join = _thread(connect_once, "tcp", address, None)
+    rc, dt = run_cli(argv + [f"networkserver:{address}", "100e6", "--mono"],
+                     dev)
+    got = np.frombuffer(join(), np.float32)
+    exp = np.fromfile(real, np.float32)
+    if rc != 0 or got.shape != (n // 25,) or not np.array_equal(got, exp):
+        raise AssertionError(f"net CLI networkserver: rc {rc}, {got.shape} "
+                             f"audio samples (want {exp.shape})")
+    rates["cli_networkserver"] = n / dt
+    log("net", f"CLI rx_wbfm --mono -o networkserver:{address}: "
+               f"{len(got)} f32le audio samples read by a client, equal to "
+               f"-o realfile bit for bit; {n / dt / 1e6:.2f} M complex "
+               f"samples/s end to end")
+    # (4) rx_rds's JSON into a networkclient output
+    address = _free_tcp()
+    listening = threading.Event()
+    join = _thread(serve_once, "tcp", address, None, listening)
+    listening.wait(NET_TIMEOUT)
+    rc, dt = run_cli(["-a", "rx_rds", "-i", f"iqfile:{rds_path},rate={RATE}",
+                      "-o", f"networkclient:{address},format=json", "0"],
+                     dev)
+    packets = [json.loads(ln) for ln in join().decode().splitlines()]
+    if rc != 0 or packets != rds_packets:
+        raise AssertionError(f"net CLI rx_rds networkclient json: rc {rc}, "
+                             f"{len(packets)} packets, the rds phase's "
+                             f"{len(rds_packets)}")
+    log("net", f"CLI rx_rds -o networkclient:{address},format=json: "
+               f"{len(packets)} packets, equal to the rds phase's")
+    return rates
+
+
+class FakeHackRFTx:
+    """An in-process libhackrf for transmit.  Its transfer thread waits for
+    a full transfer of samples in the sink's ring (or the ring's close)
+    before each callback, as a device streaming from a host that keeps
+    up, and keeps the s8 wire each callback wrote."""
+
+    BUFFER = 1 << 18             # bytes a transfer (131 072 samples)
+
+    def __init__(self):
+        self.sent, self.sink, self.thread = [], None, None
+
+    def __getattr__(self, name):
+        if not name.startswith("hackrf_"):
+            raise AttributeError(name)
+        return lambda *args: 0
+
+    def hackrf_open(self, devp):
+        ctypes.cast(devp, ctypes.POINTER(ctypes.c_void_p))[0] = \
+            ctypes.c_void_p(0xDEAD)
+        return 0
+
+    @property
+    def hackrf_compute_baseband_filter_bw_round_down_lt(self):
+        class RoundDown:
+            restype = None
+
+            def __call__(self, bw):
+                return int(bw.value * 3 // 4)
+        return RoundDown()
+
+    def hackrf_start_tx(self, dev, cb, ctx):
+        from luaradio_tpu_torch.blocks.sources.sdr import _hackrf_transfer
+
+        def pump():
+            ring = self.sink.ring
+            while True:
+                while ring.available < self.BUFFER // 2 and not ring.closed:
+                    time.sleep(0.001)
+                buf = (ctypes.c_uint8 * self.BUFFER)()
+                t = _hackrf_transfer(
+                    device=dev, buffer=ctypes.cast(
+                        buf, ctypes.POINTER(ctypes.c_uint8)),
+                    buffer_length=self.BUFFER, valid_length=0)
+                if cb(ctypes.byref(t)) != 0:
+                    break
+                self.sent.append(np.frombuffer(bytes(buf), np.int8).copy())
+        self.thread = threading.Thread(target=pump, daemon=True)
+        self.thread.start()
+        return 0
+
+    def hackrf_stop_tx(self, dev):
+        self.thread.join(NET_TIMEOUT)     # the in-flight transfers drain
+        return 0
+
+
+def _plot_blocks(text, header):
+    """The data blocks that follow each ``header`` line of a gnuplot
+    command stream, as lists of number rows."""
+    blocks, rows = [], None
+    for ln in text.splitlines():
+        if ln == header:
+            rows = []
+        elif rows is not None and ln == "e":
+            blocks.append(rows)
+            rows = None
+        elif rows is not None:
+            rows.append([float(v) for v in ln.split()])
+    return blocks
+
+
+def phase_plot_tx(tmp, dev):
+    """GnuplotSpectrumSink and GnuplotWaterfallSink fed from the card (a
+    complex tone on a bin of the PSD, made by SignalSource on the card;
+    each sink's PSD batch on the card) through a fake gnuplot on PATH that
+    copies its input to a file: the last spectrum's peak and every
+    waterfall row's peak on the tone's bin.  Then HackRFSink fed by the FM
+    modulator on the card through a fake TX library: the s8 wire it sends
+    equals the host f32 -> s8 conversion of the IQ the modulator gave
+    (tapped on the host)."""
+    bindir = os.path.join(tmp, "bin")
+    os.makedirs(bindir, exist_ok=True)
+    gp = os.path.join(bindir, "gnuplot")
+    with open(gp, "w") as fh:
+        fh.write('#!/bin/sh\ncat > "$CHIP_SMOKE_GNUPLOT_OUT.$$"\n')
+    os.chmod(gp, 0o755)
+    env = {k: os.environ.get(k) for k in ("PATH", "CHIP_SMOKE_GNUPLOT_OUT")}
+    os.environ["PATH"] = f"{bindir}:{env['PATH'] or ''}"
+    os.environ["CHIP_SMOKE_GNUPLOT_OUT"] = os.path.join(tmp, "gnuplot")
+    tone = PLOT_BIN * PLOT_RATE / PLOT_N
+    try:
+        top = CompositeBlock()
+        src = lr.SignalSource("exponential", tone, PLOT_RATE)
+        top.connect(src, lr.GnuplotSpectrumSink(PLOT_N, "spectrum"))
+        top.connect(src, lr.GnuplotWaterfallSink(PLOT_N, "waterfall",
+                                                 height=8))
+        top.run(max_chunks=4, chunk_size=16 * PLOT_N, device=dev)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    streams = {}
+    for f in os.listdir(tmp):
+        if f.startswith("gnuplot."):
+            with open(os.path.join(tmp, f)) as fh:
+                text = fh.read()
+            streams["waterfall" if "set view map" in text
+                    else "spectrum"] = text
+    spec = _plot_blocks(streams.get("spectrum", ""),
+                        "plot '-' with lines notitle")
+    water = _plot_blocks(streams.get("waterfall", ""),
+                         "plot '-' matrix with image notitle")
+    if not spec or not water:
+        raise AssertionError(f"plot: {len(spec)} spectra, {len(water)} "
+                             f"waterfalls written to the fake gnuplot")
+    freqs, psd = np.array(spec[-1]).T
+    peak = freqs[np.argmax(psd)]
+    cols = {int(np.argmax(row)) for row in water[-1]}
+    if peak != tone or cols != {PLOT_N // 2 + PLOT_BIN}:
+        raise AssertionError(f"plot: spectrum peak at {peak} Hz (tone "
+                             f"{tone} Hz), waterfall peaks in columns "
+                             f"{sorted(cols)} (want {PLOT_N // 2 + PLOT_BIN})")
+    log("plot-tx", f"GnuplotSpectrumSink: {len(spec)} spectra, peak at "
+                   f"{peak:.1f} Hz (the tone's bin); GnuplotWaterfallSink: "
+                   f"{len(water)} images, every row's peak in the tone's "
+                   f"column; PSDs on the card")
+    fake = FakeHackRFTx()
+    lr.HackRFSink._injected_lib = fake
+    try:
+        top = CompositeBlock()
+        sink, tap = lr.HackRFSink(433e6, vga_gain=20), _Collect()
+        fake.sink = sink
+        fm = lr.FrequencyModulatorBlock(0.01)
+        top.connect(lr.SignalSource("cosine", 1e3, TX_RATE), fm)
+        top.connect(fm, sink)
+        top.connect(fm, tap)
+        top.run(max_chunks=4, chunk_size=TX_CHUNK, device=dev)
+    finally:
+        lr.HackRFSink._injected_lib = None
+    iq = np.concatenate(tap.got)
+    sent = np.concatenate(fake.sent)
+    exp = np.clip(iq.view(np.float32) * 127.0, -128, 127).astype(np.int8)
+    if len(iq) != 4 * TX_CHUNK or len(sent) < len(exp) or \
+            not np.array_equal(sent[:len(exp)], exp):
+        raise AssertionError(f"tx: {len(iq)} IQ samples, {len(sent)} s8 "
+                             f"values sent")
+    log("plot-tx", f"HackRFSink: {len(iq)} FM samples from the card, the "
+                   f"s8 wire sent ({len(fake.sent)} transfers) equals the "
+                   f"host f32 -> s8 conversion bit for bit")
+
+
 def profile_run(run, out, what):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -3385,18 +4022,14 @@ def profile_run(run, out, what):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     events = prof.key_averages()
-    key = ("self_device_time_total"
-           if hasattr(events[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    dev_us = sum(getattr(e, key) for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    table = events.table(sort_by=key, row_limit=30)
+    dms = device_ms(prof)
+    table = events.table(sort_by=_device_key(events), row_limit=30)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     with open(out, "w") as f:
         f.write(table)
     log("profile", f"{what} under torch.profiler: run {wall:.4f} s "
                    f"(profiler overhead included), device time "
-                   f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}"
+                   f"{dms:.3f} ms ({100 * dms / 1e3 / wall:.1f}"
                    f" % of the profiled run); table in {out}")
 
 
@@ -3429,6 +4062,10 @@ def main(argv):
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
         log("build", f"{src} in {secs:.2f} s: {'; '.join(regs)}")
     log("build", f"all kernels ready in {time.monotonic() - t0:.2f} s")
+    t0 = time.monotonic()
+    log("build", f"native/src/format_conv.c (the host wire conversions) "
+                 f"{'built' if native.available() else 'not built: numpy'}"
+                 f" in {time.monotonic() - t0:.2f} s")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     k1, k2_err, x_wire = phase_kernels(dev, gen)
@@ -3465,6 +4102,7 @@ def main(argv):
     k3["max_abs_err"] = max(k3["max_abs_err"], rds["max_abs_err"])
     overlap["rds_path_launches"] = rds["overlap_launches"]
     overlap["max_abs_err"] = max(overlap["max_abs_err"], rds["overlap_err"])
+    rds_packets = rds["packets"]
     del rds
     with tempfile.TemporaryDirectory() as tmp:
         mono = phase_bank_mono(tmp, dev, profile)
@@ -3514,6 +4152,23 @@ def main(argv):
     k3["newton_path"] = phase_newton(dev)
     k3["max_abs_err"] = max(k3["max_abs_err"],
                             k3["newton_path"]["max_abs_err"])
+    wire_errs = phase_io_wire(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, n, rds_path, sent, wires = live_captures(tmp)
+        live = phase_live(dev, wires, sent)
+        del wires
+        net = phase_net(tmp, dev, paths, n, rds_path, rds_packets)
+        phase_plot_tx(tmp, dev)
+    k3["live_path"] = {f"rtlsdr_{k}": live[k]["k3_launches"]
+                       for k in ("am_synchronous", "rds")}
+    overlap["live_path"] = {f"rtlsdr_{k}": live[k]["scan_launches"]
+                            for k in ("am_synchronous", "rds")}
+    log("io", json.dumps({"device": smi, "wire_max_abs_err": wire_errs,
+                          "live": {k: {x: v[x] for x in (
+                              "wall_over_capture", "wall_s", "busy",
+                              "k3_launches", "scan_launches")}
+                              for k, v in live.items()},
+                          "net_sps": net}))
     log("fir-fft", json.dumps({"device": smi, **fir_fft}))
     entries = [k1, k2, k3, overlap]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

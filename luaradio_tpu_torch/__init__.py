@@ -21,7 +21,12 @@ the hand-fused flagship step.  Beyond the receivers it has the rest of the
 signal blocks (IIR filters of any order, FFT overlap-save FIRs, the FM,
 PAM and QAM modulators, the power squelch, interleave, deinterleave, nop
 and throttle), the real, raw, WAV and JSON file sources, the real and raw
-file sinks, eager mode and the runtime's span tracer.
+file sinks, eager mode and the runtime's span tracer.  It reaches the
+outside world as the JAX package does: network sources and sinks over
+TCP and UNIX sockets, the SDR sources (raw wire rings, converted on the
+card) and transmit sinks over the vendor libraries, PulseAudio and
+PortAudio, gnuplot plots, and the dispatcher's inputs and outputs for
+all of them.
 """
 
 __version__ = "0.1.0"

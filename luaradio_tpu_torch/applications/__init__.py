@@ -3,9 +3,9 @@ JAX package's applications/__init__.py; reference
 radio/applications/init.lua: :4-195 factory tables, :282-322
 "name:arg,opt=val,..." spec parsing, :324-419 dispatch).
 
-Only the sources and sinks the port has are listed: ``INPUTS`` holds
-``iqfile``; ``OUTPUTS`` holds ``wavfile``, ``iqfile``, ``realfile``,
-``print``, ``json`` and ``benchmark``.  Any other name raises."""
+``INPUTS`` and ``OUTPUTS`` hold the JAX package's names: the file,
+network, SDR and audio inputs, and the file, audio, print, JSON, benchmark
+and network outputs.  Any other name raises."""
 
 from __future__ import annotations
 
@@ -50,8 +50,47 @@ def _in_iqfile(spec, frequency, rate):
                               repeat_on_eof=bool(spec.options.get("repeat")))
 
 
+def _in_network(cls):
+    def make(spec, frequency, rate):
+        transport = spec.options.get("transport", "tcp")
+        address = spec.args[0] if spec.args else spec.options["address"]
+        fmt = spec.options.get("format", "f32le")
+        if rate is None:
+            raise ValueError(f"{spec.name} input requires rate=... option")
+        return cls(radio.ComplexFloat32, rate, transport, address, format=fmt)
+    return make
+
+
+def _in_sdr(cls, needs_device=False):
+    def make(spec, frequency, rate):
+        opts = {k: v for k, v in spec.options.items()
+                if not k.startswith("_") and k != "rate"}
+        if needs_device:
+            return cls(spec.args[0] if spec.args else "", frequency, rate,
+                       **opts)
+        return cls(frequency, rate, **opts)
+    return make
+
+
 INPUTS = {
     "iqfile": (_in_iqfile, {"_tune_offset": 0}),
+    "networkclient": (_in_network(radio.NetworkClientSource),
+                      {"_tune_offset": 0}),
+    "networkserver": (_in_network(radio.NetworkServerSource),
+                      {"_tune_offset": 0}),
+    "rtlsdr": (_in_sdr(radio.RtlSdrSource), {"_rate": 1102500}),
+    "airspy": (_in_sdr(radio.AirspySource), {"_rate": 3000000}),
+    "airspyhf": (_in_sdr(radio.AirspyHFSource), {"_rate": 768000}),
+    "bladerf": (_in_sdr(radio.BladeRFSource), {"_rate": 1102500}),
+    "hackrf": (_in_sdr(radio.HackRFSource), {"_rate": 8820000}),
+    "hydrasdr": (_in_sdr(radio.HydraSDRSource), {"_rate": 10000000}),
+    "sdrplay": (_in_sdr(radio.SDRplaySource), {"_rate": 2205000}),
+    "uhd": (_in_sdr(radio.UHDSource, needs_device=True), {"_rate": 1102500}),
+    "soapysdr": (_in_sdr(radio.SoapySDRSource, needs_device=True), {}),
+    "pulseaudio": (lambda spec, f, rate: radio.PulseAudioSource(
+        int(spec.options.get("channels", 1)), rate), {}),
+    "portaudio": (lambda spec, f, rate: radio.PortAudioSource(
+        int(spec.options.get("channels", 1)), rate), {}),
 }
 
 
@@ -72,14 +111,27 @@ def _out_realfile(spec, *a):
     return radio.RealFileSink(spec.args[0], fmt)
 
 
+def _out_network(cls):
+    def make(spec, *a):
+        transport = spec.options.get("transport", "tcp")
+        address = spec.args[0] if spec.args else spec.options["address"]
+        fmt = spec.options.get("format", "f32le")
+        return cls(transport, address, format=fmt)
+    return make
+
+
 OUTPUTS = {
     "wavfile": _out_wavfile,
     "iqfile": _out_iqfile,
     "realfile": _out_realfile,
+    "pulseaudio": lambda spec, nch=1: radio.PulseAudioSink(nch),
+    "portaudio": lambda spec, nch=1: radio.PortAudioSink(nch),
     "print": lambda spec, *a: radio.PrintSink(),
     "json": lambda spec, *a: radio.JSONSink(
         spec.args[0] if spec.args else None),
     "benchmark": lambda spec, *a: radio.BenchmarkSink(),
+    "networkclient": _out_network(radio.NetworkClientSink),
+    "networkserver": _out_network(radio.NetworkServerSink),
 }
 
 
@@ -107,7 +159,13 @@ def make_input(spec: str, app: Application) -> InputSpec:
                          f"(choices: {', '.join(sorted(INPUTS))})")
     factory, defaults = INPUTS[name]
     merged = dict(defaults)
-    merged.update(app.supported_inputs.get(name) or {})
+    app_defaults = app.supported_inputs.get(name)
+    if isinstance(app_defaults, (int, float)):
+        # the receivers list each input's default rate as a number
+        # (apps.py _SDR_RATES); the JAX package's dispatcher merges it as
+        # a dict and raises TypeError for every SDR input of them
+        app_defaults = {"_rate": app_defaults}
+    merged.update(app_defaults or {})
     merged.update(options)
     return InputSpec(name, args, merged, factory,
                      default_rate=merged.get("_rate"))

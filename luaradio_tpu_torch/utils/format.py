@@ -5,9 +5,10 @@ The 14 scalar wire formats of the reference
 u32/s32/f32/f64 in little/big endian, with offset/scale conversion to float
 in approximately [-1, 1): float = (raw - offset) / scale.
 
-Host-side conversion is vectorized numpy (the reference converts per sample
-in Lua).  The formats whose conversion is exact in float32 are also
-converted on the card (blocks/sources/files.py wire ingest).
+Host-side conversion takes the native C library (utils/native.py) when it
+is available and vectorized numpy otherwise (the reference converts per
+sample in Lua).  The formats whose conversion is exact in float32 are
+also converted on the card (blocks/sources/files.py wire ingest).
 """
 
 from __future__ import annotations
@@ -78,7 +79,12 @@ def float_to_raw(x: np.ndarray, fmt: SampleFormat) -> np.ndarray:
 
 def bytes_to_complex(buf: bytes, fmt: SampleFormat) -> np.ndarray:
     """Interleaved I/Q wire bytes -> complex64 samples."""
+    from luaradio_tpu_torch.utils import native
     n = len(buf) // (2 * fmt.itemsize)
+    if native.available():
+        f = native.raw_bytes_to_f32(buf[:n * 2 * fmt.itemsize], fmt.name,
+                                    fmt.offset, fmt.scale)
+        return f.view(np.complex64)
     raw = np.frombuffer(buf, dtype=fmt.dtype, count=2 * n)
     f = raw_to_float(raw, fmt)
     return np.ascontiguousarray(f).view(np.complex64)
@@ -86,19 +92,29 @@ def bytes_to_complex(buf: bytes, fmt: SampleFormat) -> np.ndarray:
 
 def bytes_to_real(buf: bytes, fmt: SampleFormat) -> np.ndarray:
     """Wire bytes -> float32 samples."""
+    from luaradio_tpu_torch.utils import native
     n = len(buf) // fmt.itemsize
+    if native.available():
+        return native.raw_bytes_to_f32(buf[:n * fmt.itemsize], fmt.name,
+                                       fmt.offset, fmt.scale)
     raw = np.frombuffer(buf, dtype=fmt.dtype, count=n)
     return raw_to_float(raw, fmt)
 
 
 def complex_to_bytes(x: np.ndarray, fmt: SampleFormat) -> bytes:
+    from luaradio_tpu_torch.utils import native
     x = np.ascontiguousarray(np.asarray(x, dtype=np.complex64))
     inter = x.view(np.float32)
+    if native.available():
+        return native.f32_to_raw_bytes(inter, fmt.name, fmt.offset, fmt.scale)
     return float_to_raw(inter, fmt).tobytes()
 
 
 def real_to_bytes(x: np.ndarray, fmt: SampleFormat) -> bytes:
+    from luaradio_tpu_torch.utils import native
     x = np.asarray(x, dtype=np.float32)
+    if native.available():
+        return native.f32_to_raw_bytes(x, fmt.name, fmt.offset, fmt.scale)
     return float_to_raw(x, fmt).tobytes()
 
 

@@ -1,6 +1,5 @@
 """The port's public surface against the JAX package's: every exported name
-(except the I/O the port has not reached and the submodule attributes),
-the positional parameters of every name both export and of
+(except the submodule attributes), the positional parameters of every name both export and of
 CompositeBlock.run/start, the version names, eager mode (bit for bit the
 fused run, both against the JAX package's six-block graph of
 tests/core/test_runtime.py:30), the runtime's span tracer and the debug
@@ -26,21 +25,9 @@ import luaradio_tpu_torch as tl  # noqa: E402
 from luaradio_tpu_torch.core import debug, trace  # noqa: E402
 from luaradio_tpu_torch.core.runtime import Runner  # noqa: E402
 
-#: the JAX package's I/O the port has not reached (ROADMAP queue 1)
-UNPORTED_IO = ("blocks.sources.network", "blocks.sources.sdr",
-               "blocks.sinks.audio", "blocks.sinks.network",
-               "blocks.sinks.plot", "blocks.sinks.sdr")
 #: parameters the port adds (keyword-only) or leaves out, by name
 PORT_ONLY = {"device"}
 JAX_ONLY = {"channel_axis", "time_axis", "ingest"}
-
-
-def _unported():
-    import importlib
-    names = set()
-    for m in UNPORTED_IO:
-        names.update(importlib.import_module(f"luaradio_tpu.{m}").__all__)
-    return names
 
 
 def _exported(mod):
@@ -49,7 +36,7 @@ def _exported(mod):
 
 
 def test_the_port_exports_every_name_of_the_jax_package():
-    missing = _exported(jl) - _exported(tl) - _unported()
+    missing = _exported(jl) - _exported(tl)
     assert not missing, sorted(missing)
 
 
@@ -83,7 +70,8 @@ def test_positional_parameters_match(name):
     """Equal positional parameter names in order: ``use_fft`` on the FIR
     blocks cannot go missing again."""
     a = [p for p in _positional(getattr(jl, name)) if p not in JAX_ONLY]
-    b = [p for p in _positional(getattr(tl, name)) if p not in PORT_ONLY]
+    b = [p for p in _positional(getattr(tl, name))
+         if p not in PORT_ONLY or p in a]     # UHD's own ``device`` stays
     assert a == b
 
 

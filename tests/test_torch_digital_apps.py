@@ -111,6 +111,14 @@ def test_digital_applications_run_on_the_card_by_default(tmp_path, app,
 
 @pytest.mark.parametrize("output", ["pulseaudio", "portaudio"])
 def test_outputs_the_port_lacks_raise(tmp_path, output):
-    with pytest.raises(ValueError, match="unsupported output"):
-        port_main(["-a", "rx_rds", "-i", f"iqfile:{tmp_path / 'x'},"
-                   "rate=1102500", "-o", output, "0"], device="cpu")
+    """The name predates the port's audio outputs.  rx_rds's packets
+    cannot go to an audio sink: both CLIs raise the block's ValueError
+    when the graph is typed, before any library is loaded."""
+    cap = tmp_path / "x"
+    np.zeros(2 * 4096, np.float32).tofile(cap)
+    argv = ["-a", "rx_rds", "-i", f"iqfile:{cap},rate=1102500", "-o",
+            output, "0"]
+    for run in (lambda: port_main(argv, device="cpu"),
+                lambda: jax_main(argv)):
+        with pytest.raises(ValueError, match="no type signature matches"):
+            run()

@@ -414,20 +414,24 @@ def test_parse_spec_and_unknown_names():
     with pytest.raises(ValueError, match="unknown application"):
         port_main(["-a", "rx_nope", "-i", "iqfile:x", "-o", "wavfile:y"],
                   device="cpu")
-    with pytest.raises(ValueError, match="unsupported input 'rtlsdr'"):
-        port_main(["-a", "rx_wbfm", "-i", "rtlsdr", "-o", "wavfile:y",
+    with pytest.raises(ValueError, match="unsupported input 'rtlsdr2'"):
+        port_main(["-a", "rx_wbfm", "-i", "rtlsdr2", "-o", "wavfile:y",
                    "100e6"], device="cpu")
-    with pytest.raises(ValueError, match="unsupported output 'pulseaudio'"):
+    with pytest.raises(ValueError, match="unsupported output 'speaker'"):
         port_main(["-a", "rx_wbfm", "-i", "iqfile:x,rate=1e6", "-o",
-                   "pulseaudio", "100e6"], device="cpu")
+                   "speaker", "100e6"], device="cpu")
     with pytest.raises(SystemExit):
         port_main(["-a", "rx_wbfm"])              # missing -i/-o
     assert sorted(applications.APPLICATIONS) == [
         "iq_converter", "rx_am", "rx_ax25", "rx_ert", "rx_nbfm",
         "rx_pocsag", "rx_raw", "rx_rds", "rx_ssb", "rx_wbfm"]
-    assert sorted(applications.INPUTS) == ["iqfile"]
-    assert sorted(applications.OUTPUTS) == ["benchmark", "iqfile", "json",
-                                            "print", "realfile", "wavfile"]
+    assert sorted(applications.INPUTS) == [
+        "airspy", "airspyhf", "bladerf", "hackrf", "hydrasdr", "iqfile",
+        "networkclient", "networkserver", "portaudio", "pulseaudio",
+        "rtlsdr", "sdrplay", "soapysdr", "uhd"]
+    assert sorted(applications.OUTPUTS) == [
+        "benchmark", "iqfile", "json", "networkclient", "networkserver",
+        "portaudio", "print", "pulseaudio", "realfile", "wavfile"]
 
 
 def test_cli_version_and_platform(capsys):
