@@ -123,7 +123,8 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     interleave, deinterleave, nop, the real and raw file sources) is held
     against the same graph on the CPU; each PLL row's first K3 launch and
     first overlap scan, recorded on the row's 2^22-sample inputs, against
-    their twins;
+    their twins, and K3 timed alone on the noise-fed row's (CUDA events,
+    beside its bound and chain floor);
 20. fir-fft: fir_fft and the direct cuDNN FIR timed for a 129-tap real
     FIR on [64, 65 536] and [1, 2^22];
 21. roundtrip: the FM self test module on the card (tone within 50 Hz),
@@ -160,14 +161,36 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     through a fake gnuplot on PATH (the peak on the tone's bin), and
     HackRFSink fed by the FM modulator through a fake TX library (the s8
     wire equal to the host conversion);
-28. the kernels line and the final status line.
+28. time: time sharding on the one card (parallel/mesh.py): the README
+    graph over the graph phase's captures (f32 and u8 wire) on a
+    ("time",) mesh of 4, audio within 1e-5 of the serial run and the
+    tone within 50 Hz; bench.py's random graph at 2^22-sample chunks in
+    8 shards beside the serial run (complex samples/s, host clock; the
+    card's busy share, torch.profiler); the bench u8 file graph from its
+    resident ring in 8 shards, equal to the serial resident run within
+    1e-5; the RDS receiver (vector pilot) over the rds phase's capture in
+    4 shards, its packets equal to its serial run's and its late groups
+    to the rds phase's; WBFMMonoBank at 64 channels on a (64, 4)
+    ("channel", "time") mesh within 2e-4 * scale of its one-card run;
+    K1, K2 and K3 must launch 0 times over the phase;
+29. multihost: two processes of this script (``--multihost-worker``) on
+    the card joined over gloo, each holding two of a ("time",) mesh's 4
+    shards: the README graph over both captures, the per-process blocks
+    reassembled within 1e-5 of the serial run; then the bank-host
+    graph's 8 POCSAG rows on a process-spanning ("channel",) mesh, 4 a
+    process, each row's messages as sent; joined with a hard limit;
+30. embed: cc builds native/src/embed.c and the port's lifecycle program
+    (luaradio_tpu_torch/utils/embed.py), which runs a graph on the card
+    through the C API (errors, start, running, wait, stopped, stop), its
+    output equal to the Python run's;
+31. the kernels line and the final status line.
 
 Launch counts are zeroed just before the flagship, the K2 graph run, the
 stereo CLI run, the overlap path run, the rx_am --synchronous run, the
 rx_rds run, the bank-mono K2 run, the two bank-stereo runs, each block
 row, the FM round trip under the K2 rule, the newton call and each paced
-live example, and read just after: each kernel must have run on its
-path.  Any failure
+live example, and the time phase (where each must stay at 0), and
+read just after: each kernel must have run on its path.  Any failure
 raises (non-zero exit); a hang ends the run with a traceback after 480 s.
 ``--profile PATH`` also writes a torch.profiler table of one mono graph
 run to PATH, of the stereo run to PATH.stereo.txt, of the rx_am
@@ -226,6 +249,7 @@ from luaradio_tpu_torch.ops.fir import _conv_real
 from luaradio_tpu_torch.parallel.flagship import (INV_GAIN,
                                                   make_wbfm_mono_step,
                                                   wbfm_mono_taps)
+from luaradio_tpu_torch.parallel.mesh import Mesh
 from luaradio_tpu_torch.parallel.rds import RDSBank
 from luaradio_tpu_torch.parallel.wbfm import WBFMMonoBank, WBFMStereoBank
 from luaradio_tpu_torch.types import number_to_bits
@@ -235,7 +259,7 @@ from luaradio_tpu_torch.utils.network import NetworkClient, NetworkServer
 
 T0 = time.monotonic()
 #: a hang ends the run with a traceback after this many seconds; a whole
-#: run, build included, takes about three minutes on the card (four with
+#: run, build included, takes about four minutes on the card (five with
 #: --profile)
 HANG_S = 480
 #: H100 SXM data sheet: HBM rate, and fp32 rate outside the tensor cores
@@ -1556,18 +1580,18 @@ def bench_graph(source, sink):
     return top
 
 
-def bench_run(make_source, dev, secs=BENCH_S):
-    """One of bench.py's graph rows on the card: warm up, time 16 chunks,
-    then run for about ``secs``.  Returns (complex samples/s, chunks,
-    the runner's host-to-device copies)."""
-    Runner(bench_graph(make_source(), BenchmarkSink()),
-           chunk_size=BENCH_CHUNK, device=dev).run(max_chunks=2)  # warm-up
+def bench_run(make_source, dev, secs=BENCH_S, mesh=None):
+    """One of bench.py's graph rows on the card (on ``mesh``, if given):
+    warm up, time 16 chunks, then run for about ``secs``.  Returns
+    (complex samples/s, chunks, the runner's host-to-device copies)."""
+    def make():
+        return Runner(bench_graph(make_source(), BenchmarkSink()),
+                      chunk_size=BENCH_CHUNK, mesh=mesh, device=dev)
+    make().run(max_chunks=2)                                    # warm-up
     t0 = time.monotonic()
-    Runner(bench_graph(make_source(), BenchmarkSink()),
-           chunk_size=BENCH_CHUNK, device=dev).run(max_chunks=16)
+    make().run(max_chunks=16)
     k = max(16, int(secs / max((time.monotonic() - t0) / 16, 1e-4)))
-    runner = Runner(bench_graph(make_source(), BenchmarkSink()),
-                    chunk_size=BENCH_CHUNK, device=dev)
+    runner = make()
     t0 = time.monotonic()
     runner.run(max_chunks=k)
     dt = time.monotonic() - t0
@@ -2599,8 +2623,8 @@ def phase_bank_classes(dev, gen):
     out = {}
     for kind, cls in classes.items():
         x, rate = bank_class_input(kind, dev, gen)
-        bank = cls(if_rate=rate, device=dev) if kind == "rds" else \
-            cls(if_rate=rate, decimation=8, device=dev)
+        bank = cls(None, if_rate=rate, device=dev) if kind == "rds" else \
+            cls(None, if_rate=rate, decimation=8, device=dev)
         chunks = x.split(CLASS_CHUNK, dim=-1)
         state = bank.init_state(BANK_C)
         bank.step(state, chunks[0].contiguous())                 # warm-up
@@ -2645,13 +2669,10 @@ POCSAG_SENT = {0: (0x12342, 2, "HI"), 2: (0x0ABC1, 3, "BANK"),
                5: (0x1F003, 1, "ROW 5"), 7: (0x00420, 0, "CQ")}
 
 
-def phase_bank_host(tmp, dev):
-    """The per-channel host fan-out: a BankSource of 8 POCSAG captures at
-    RATE, 1 s each (rows POCSAG_SENT carry their own message, one batch
-    after the preamble; the others noise), through the rx_pocsag graph by
-    hand (Tuner -> POCSAGReceiver -> a sink) with run(channels=8): the
-    framer and decoder run one clone a channel, and each row's decoded
-    messages must be what was sent on it, none on the noise rows."""
+def write_pocsag_rows(tmp):
+    """The bank-host phase's 8 POCSAG captures at RATE, 1 s each: rows
+    POCSAG_SENT carry their own message, one batch after the preamble;
+    the others noise.  Returns their paths."""
     rows = []
     for c in range(8):
         z = np.zeros(RATE, np.complex64)
@@ -2661,6 +2682,17 @@ def phase_bank_host(tmp, dev):
                                                          4500.0))
             z[int(0.02 * RATE):int(0.02 * RATE) + len(iq)] = iq
         rows.append(write_iq(tmp, f"pocsag{c}.f32.iq", noisy(z, 0, 50 + c)))
+    return rows
+
+
+def phase_bank_host(tmp, dev):
+    """The per-channel host fan-out: a BankSource of 8 POCSAG captures at
+    RATE, 1 s each (rows POCSAG_SENT carry their own message, one batch
+    after the preamble; the others noise), through the rx_pocsag graph by
+    hand (Tuner -> POCSAGReceiver -> a sink) with run(channels=8): the
+    framer and decoder run one clone a channel, and each row's decoded
+    messages must be what was sent on it, none on the noise rows."""
+    rows = write_pocsag_rows(tmp)
     top, sink = CompositeBlock(), _Collect()
     top.connect(BankSource([IQFileSource(p, "f32le", RATE) for p in rows]),
                 TunerBlock(0, 12e3, round(RATE / 12.5e3)),
@@ -2952,7 +2984,7 @@ def hold_inputs(kind, n, rng):
     raise ValueError(kind)
 
 
-def phase_blocks(tmp, dev, smi):
+def phase_blocks(tmp, dev, smi, ns_step):
     """Every row of the reference block benchmark on the card (block_rows),
     its launch counts zeroed before each row and read after: the noise-fed
     PLL row must launch K3 (sequential tier: the coherence gate keeps the
@@ -2964,7 +2996,8 @@ def phase_blocks(tmp, dev, smi):
     blocks and the file sources).  The first K3 launch and the first
     overlap scan of each PLL row are recorded on the row's own inputs
     (its 2^22-sample chunks, at the scan's plan for them) and held
-    against their twins."""
+    against their twins; K3 is timed alone on the noise-fed row's
+    (``ns_step``: the chain probe's time a step)."""
     from scipy.signal import cheby1
     rows, paths = block_rows(tmp)
     out = []
@@ -3077,14 +3110,38 @@ def phase_blocks(tmp, dev, smi):
     blk.initialize()
     params = (blk._alpha, blk._beta, blk._freq_min, blk._freq_max)
     k3_err = scan_err = 0.0
+    k3_alone = None
     for name, k3_calls, scan_calls in pll_calls:
         if k3_calls:
             k3_err = max(k3_err, hold_k3_launch(name, k3_calls[0], params))
+            if name == "PLL":
+                k3_alone = time_k3_alone(k3_calls[0], params, ns_step)
         if scan_calls:
             scan_err = max(scan_err, hold_scan_launch(name, scan_calls[0]))
     return {"rows": out, "k3_launches": paths_launch["k3"],
             "scan_launches": paths_launch["scan"], "k3_err": k3_err,
-            "scan_err": scan_err}
+            "scan_err": scan_err, "k3_alone": k3_alone}
+
+
+def time_k3_alone(call, params, ns_step):
+    """K3 alone on the noise-fed PLL row's first 2^22-sample chunk (its
+    recorded inputs, multiplier 1): CUDA events around each launch,
+    median of 5 after 3 warm-ups, beside its byte bound and the chain
+    floor of phase 8's probe."""
+    (_, x, state, _), _ = call
+    n = x.shape[0]
+    ms = median_ms(lambda: pll.pll_phase(x, state, *params, 1.0), reps=5)
+    t_bytes = n * PLL_BYTES / HBM_BYTES_PER_S
+    t_ops = n * PLL_OPS / FP32_FLOP_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    floor_ms = n * ns_step / 1e6
+    log("blocks", f"PLL: K3 alone on the row's first chunk [{n} samples]: "
+                  f"{ms:.3f} ms a launch (CUDA events, median of 5), "
+                  f"{n / ms / 1e3:.2f} M samples/s; bound {bound_ms:.4f} ms "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'}); chain "
+                  f"floor {floor_ms:.2f} ms: {ms / floor_ms:.3f}x it")
+    return {"samples": n, "ms": ms, "bound_ms": bound_ms,
+            "chain_floor_ms": floor_ms, "floor_ratio": ms / floor_ms}
 
 
 def hold_k3_launch(row, call, params):
@@ -4013,6 +4070,384 @@ def phase_plot_tx(tmp, dev):
                    f"host f32 -> s8 conversion bit for bit")
 
 
+# -- this slice: time sharding, multihost and the C embedding ----------------
+
+#: the time phase's meshes: the README graph and the RDS receiver in
+#: TIME_D time shards, bench.py's graphs in BENCH_D, WBFMMonoBank's bank
+#: on (BANK_C, TIME_D); the multihost phase's processes, each holding two
+#: time shards (or half the POCSAG bank's rows), and the hard limit on
+#: their run
+TIME_D, BENCH_D = 4, 8
+MH_NPROC, MH_TIMEOUT = 2, 240.0
+#: the time-sharded RDS receiver's chunk at the source: 2^20 at its IF
+#: rate, 2^18 a shard, 8 192 points of the phase corrector
+RDS_CHUNK = 1 << 22
+
+
+def kernel_counts() -> dict:
+    return {"K1": wbfm.wbfm_mono.launches, "K2": wbfm.disc_fir.launches,
+            "K3": pll.pll_phase.launches}
+
+
+def zero_kernel_counts():
+    wbfm.wbfm_mono.launches = wbfm.disc_fir.launches = 0
+    pll.pll_phase.launches = 0
+
+
+def time_mesh(d, group=None):
+    return Mesh((d,), ("time",), group=group)
+
+
+def readme_audio(path, fmt, dev, mesh=None):
+    """The README graph's float audio (a collector in the WAV sink's
+    place), serially or on ``mesh``: (this process's audio blocks, one
+    a chunk; seconds)."""
+    top, sink = CompositeBlock(), _Collect()
+    top.connect(IQFileSource(path, fmt, RATE), TunerBlock(-250e3, 200e3, 5),
+                WBFMMonoDemodulator(), DownsamplerBlock(5), sink)
+    t0 = time.monotonic()
+    Runner(top, mesh=mesh, device=dev).run()        # ends synchronized
+    return sink.got, time.monotonic() - t0
+
+
+def rds_vector_packets(path, dev, mesh=None):
+    """rx_rds's graph by hand with the vector pilot (the PLL cannot
+    time-shard): the capture -> TunerBlock(0, 200 kHz, 4) ->
+    RDSReceiver(pilot="vector"), serially or on ``mesh``, at RDS_CHUNK
+    (each time shard must hold the phase corrector's 8 000-point window
+    of 32-sample points); (packets as JSON, seconds)."""
+    top, sink = CompositeBlock(), _Collect()
+    top.connect(IQFileSource(path, "f32le", RATE), TunerBlock(0, 200e3, 4),
+                lr.RDSReceiver(pilot="vector"), sink)
+    t0 = time.monotonic()
+    Runner(top, chunk_size=RDS_CHUNK, mesh=mesh, device=dev).run()
+    return ([json.loads(p.to_json()) for call in sink.got for p in call],
+            time.monotonic() - t0)
+
+
+def busy_share(run) -> tuple[float, float]:
+    """(wall seconds, the card's busy share) of ``run()`` under
+    torch.profiler (device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    return wall, device_ms(prof) / 1e3 / wall
+
+
+def phase_time(tmp, dev, smi, paths, rds_path, rds_sent, rds_packets):
+    """The time mesh on one card (the port's counterpart of the JAX
+    package's shard_map over D devices: D shards stacked on a leading
+    axis, parallel/mesh.py), K1/K2/K3 counts zeroed before and read
+    after (the JAX package turns its Pallas fusion off under a mesh and
+    its PLL cannot time-shard: each must be 0):
+
+    * the README graph over the graph phase's captures (f32 and u8 wire)
+      on a ("time",) mesh of TIME_D: audio within 1e-5 of the serial run,
+      the tone within 50 Hz;
+    * bench.py's random graph at 2^22-sample chunks on BENCH_D shards
+      beside the serial run (complex samples/s, host clock), and the
+      card's busy share of 16 chunks of each (torch.profiler);
+    * the bench u8 file graph from its device-resident ring on BENCH_D
+      shards: no host-to-device copy, audio within 1e-5 of the serial
+      resident run over 3 chunks;
+    * the RDS receiver (vector pilot) over the rds phase's capture on
+      TIME_D shards: its packets equal its serial run's, pass the rds
+      phase's hold and equal the rds phase's packets;
+    * WBFMMonoBank at BANK_C channels on a (BANK_C, TIME_D) ("channel",
+      "time") mesh against its one-card run (2e-4 * scale)."""
+    out = {}
+    zero_kernel_counts()
+    audio = {}
+    for fmt in ("f32le", "u8"):
+        a, dt_s = readme_audio(paths[fmt], fmt, dev)
+        b, dt_m = readme_audio(paths[fmt], fmt, dev, time_mesh(TIME_D))
+        a, b = np.concatenate(a), np.concatenate(b)
+        err = float(np.max(np.abs(a - b))) if a.shape == b.shape else None
+        peak = tone_peak(b, RATE / 25)
+        if err is None or err > 1e-5 or abs(peak - TONE) > 50:
+            raise AssertionError(f"time README {fmt}: shapes {a.shape} "
+                                 f"{b.shape}, max |mesh - serial| {err}, "
+                                 f"tone {peak} Hz")
+        audio[fmt] = a
+        out[f"readme_{fmt}"] = {"max_abs_err": err, "tone_hz": peak,
+                                "serial_sps": len(a) * 25 / dt_s,
+                                "mesh_sps": len(b) * 25 / dt_m}
+        log("time", f"README graph, {fmt} wire, ('time',) mesh of {TIME_D}: "
+                    f"{len(b)} audio samples, max |mesh - serial| {err:.3g} "
+                    f"(limit 1e-5), tone {peak:.1f} Hz; "
+                    f"{len(b) * 25 / dt_m / 1e6:.2f} M complex samples/s end "
+                    f"to end (serial {len(a) * 25 / dt_s / 1e6:.2f} M)")
+
+    def rand():
+        return UniformRandomSource(ComplexFloat32, 256e3, seed=1)
+    rows = {}
+    for label, mesh in (("serial", None), (f"D={BENCH_D}",
+                                           time_mesh(BENCH_D))):
+        sps, k, _ = bench_run(rand, dev, mesh=mesh)
+        wall, busy = busy_share(lambda: Runner(
+            bench_graph(rand(), BenchmarkSink()), chunk_size=BENCH_CHUNK,
+            mesh=mesh, device=dev).run(max_chunks=16))
+        rows[label] = {"sps": sps, "chunks": k, "busy": busy}
+        log("time", f"bench random graph, {label}: {sps / 1e6:.1f} M "
+                    f"complex samples/s over {k} chunks of {BENCH_CHUNK} "
+                    f"(host clock); card busy {100 * busy:.1f} % of 16 "
+                    f"chunks ({wall:.3f} s, torch.profiler); {smi}")
+    out["bench_random"] = rows
+
+    rng = np.random.default_rng(7)
+    ring = os.path.join(tmp, "bench.u8.iq")
+    rng.integers(0, 256, 2 * BENCH_FILE).astype(np.uint8).tofile(ring)
+    res = {}
+    for label, mesh in (("serial", None), ("mesh", time_mesh(BENCH_D))):
+        sink = _Collect()
+        r = Runner(bench_graph(IQFileSource(ring, "u8", 256e3,
+                                            repeat_on_eof=True,
+                                            resident=True), sink),
+                   chunk_size=BENCH_CHUNK, mesh=mesh, device=dev)
+        r.run(max_chunks=3)
+        if not r._resident_srcs or r.h2d_copies:
+            raise AssertionError(f"time resident {label}: ring "
+                                 f"{bool(r._resident_srcs)}, "
+                                 f"{r.h2d_copies} host-to-device copies")
+        res[label] = np.concatenate(sink.got)
+    err = float(np.max(np.abs(res["mesh"] - res["serial"]))) \
+        if res["mesh"].shape == res["serial"].shape else None
+    if err is None or err > 1e-5 or res["mesh"].shape != (
+            3 * BENCH_CHUNK // 8,):
+        raise AssertionError(f"time resident: {res['mesh'].shape}, max "
+                             f"|mesh - serial| {err}")
+    out["resident_max_abs_err"] = err
+    log("time", f"bench u8 file graph from its resident ring, D={BENCH_D}: "
+                f"0 host-to-device copies, max |mesh - serial resident| "
+                f"{err:.3g} over 3 chunks (limit 1e-5)")
+
+    serial, dt_s = rds_vector_packets(rds_path, dev)
+    sharded, dt_m = rds_vector_packets(rds_path, dev, time_mesh(TIME_D))
+    found, late = hold_rds_packets("time rds", sharded, rds_sent)
+    # the vector pilot locks at another moment than rx_rds's PLL after
+    # the noise: the groups sent after 1.5 s are held equal
+    late_groups = {g for start, g in rds_sent if start >= 1.5}
+
+    def late_frames(packets):
+        return {tuple(p["data"]["frame"]) for p in packets} & late_groups
+    if sharded != serial or late_frames(sharded) != late_frames(
+            rds_packets):
+        raise AssertionError(
+            f"time rds: {len(sharded)} packets on the mesh, {len(serial)} "
+            f"serially, {len(rds_packets)} in the rds phase; mesh == "
+            f"serial {sharded == serial}; late groups "
+            f"{len(late_frames(sharded))} vs the rds phase's "
+            f"{len(late_frames(rds_packets))}")
+    n = DIGITAL_S * RATE
+    out["rds"] = {"packets": len(sharded), "rds_phase_packets":
+                  len(rds_packets), "late_groups": len(late_frames(sharded)),
+                  "mesh_sps": n / dt_m, "serial_sps": n / dt_s}
+    log("time", f"RDS receiver (vector pilot), ('time',) mesh of {TIME_D}: "
+                f"{len(sharded)} packets, equal to its serial run's; the "
+                f"{len(late_frames(sharded))} groups sent after 1.5 s it "
+                f"decoded are the rds phase's (K3 pilot; {len(rds_packets)} "
+                f"packets in all), {found} of {late}; "
+                f"{n / dt_m / 1e6:.2f} M complex samples/s (serial "
+                f"{n / dt_s / 1e6:.2f} M)")
+
+    gen = torch.Generator(device=dev).manual_seed(77)
+    x, rate = bank_class_input("mono", dev, gen)
+    ys = {}
+    for label, mesh in (("one card", None), ("mesh", Mesh(
+            (BANK_C, TIME_D), ("channel", "time")))):
+        bank = WBFMMonoBank(mesh, if_rate=rate, decimation=8, device=dev)
+        state = bank.init_state(BANK_C)
+        bank.step(state, x[:, :CLASS_CHUNK].contiguous())     # warm-up
+        state = bank.init_state(BANK_C)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = []
+        for xc in x.split(CLASS_CHUNK, dim=-1):
+            state, y = bank.step(state, xc.contiguous())
+            got.append(y)
+        torch.cuda.synchronize()
+        ys[label] = (torch.cat(got, -1).cpu().numpy(),
+                     x.numel() / (time.monotonic() - t0))
+    exp, got = ys["one card"][0], ys["mesh"][0]
+    scale = max(1.0, float(np.abs(exp).max()))
+    err = float(np.abs(got - exp).max())
+    if got.shape != exp.shape or err > 2e-4 * scale:
+        raise AssertionError(f"time WBFMMonoBank: max |mesh - one card| "
+                             f"{err} > 2e-4 * {scale:.3g}")
+    out["wbfm_mono_bank"] = {"max_abs_err": err, "mesh_sps": ys["mesh"][1],
+                             "one_card_sps": ys["one card"][1]}
+    log("time", f"WBFMMonoBank [{BANK_C} x {CLASS_CHUNK}] x {CLASS_CHUNKS} "
+                f"on a ({BANK_C}, {TIME_D}) ('channel', 'time') mesh: max "
+                f"|mesh - one card| {err:.3g} (limit 2e-4 * {scale:.3g}); "
+                f"{ys['mesh'][1] / 1e9:.3f} G complex samples/s summed "
+                f"(one card {ys['one card'][1] / 1e9:.3f} G)")
+    counts = kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"time: kernel launches under a mesh {counts}")
+    out["launches"] = counts
+    log("time", f"kernel launches over the phase (zeroed before): {counts} "
+                f"(the JAX package's meshes run no Pallas kernel either)")
+    return out, audio
+
+
+def mh_worker(rank: int, d: str):
+    """One process of the multihost phase (``chip_smoke.py
+    --multihost-worker RANK DIR``): joins the group through a file under
+    DIR, runs the README graph on a ("time",) mesh of 2 * MH_NPROC
+    spanning the processes over both captures (after an untimed warm-up
+    run: the first pays for CUDA and cuDNN set-up), then the bank-host graph
+    on a ("channel",) mesh of its 8 rows, and writes what its sinks got
+    and its kernel counts."""
+    import pickle
+    from luaradio_tpu_torch.parallel import multihost
+    with open(os.path.join(d, "job.json")) as f:
+        job = json.load(f)
+    dev = torch.device(job["device"])
+    group = multihost.initialize(f"file://{os.path.join(d, 'rendezvous')}",
+                                 MH_NPROC, rank)
+    zero_kernel_counts()
+    out = {}
+    mesh = time_mesh(2 * MH_NPROC, group)
+    readme_audio(job["readme"]["u8"], "u8", dev, mesh)  # warm-up, untimed
+    for fmt, path in job["readme"].items():
+        out[fmt], out[fmt + "_s"] = readme_audio(path, fmt, dev, mesh)
+    top, sink = CompositeBlock(), _Collect()
+    top.connect(BankSource([IQFileSource(p, "f32le", RATE)
+                            for p in job["pocsag"]]),
+                TunerBlock(0, 12e3, round(RATE / 12.5e3)),
+                POCSAGReceiver(1200), sink)
+    r = Runner(top, mesh=Mesh((8,), ("channel",), group=group), device=dev)
+    r.run()
+    rows = r._chan_local[1] - r._chan_local[0]
+    out["pocsag"] = (r._chan_local, [
+        [(m.address, m.func, m.alphanumeric) for call in sink.got[c::rows]
+         for m in call] for c in range(rows)])
+    out["launches"] = kernel_counts()
+    with open(os.path.join(d, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_multihost(tmp, dev, paths, serial_audio):
+    """Two processes on the one card over gloo (NCCL refuses two ranks on
+    one device), each holding two stacked time shards of a ("time",) mesh
+    of 4: the README graph over both captures, each process's sink
+    getting its contiguous block of every chunk, the blocks reassembled
+    equal to the serial run within 1e-5; then a process-spanning
+    ("channel",) bank of the bank-host graph's 8 POCSAG rows, 4 a
+    process, each row's messages as sent.  The workers are joined with a
+    hard limit (killed past it); K1/K2/K3 launches in them must be 0."""
+    import pickle
+    d = os.path.join(tmp, "multihost")
+    os.makedirs(d)
+    rows = write_pocsag_rows(tmp)
+    with open(os.path.join(d, "job.json"), "w") as f:
+        json.dump({"readme": paths, "pocsag": rows, "device": str(dev)}, f)
+    t0 = time.monotonic()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--multihost-worker", str(r), d],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for r in range(MH_NPROC)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MH_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"multihost: workers still running after "
+                             f"{MH_TIMEOUT} s: killed")
+    wall = time.monotonic() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError(
+            f"multihost: workers exited {[p.returncode for p in procs]}:\n"
+            + b"\n".join(lg[-3000:] for lg in logs).decode(errors="replace"))
+    res = []
+    for r in range(MH_NPROC):
+        with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    out = {"wall_s": wall}
+    for fmt, ref in serial_audio.items():
+        blocks = [res[r][fmt] for r in range(MH_NPROC)]
+        got = np.concatenate([b[i] for i in range(len(blocks[0]))
+                              for b in blocks])
+        err = float(np.max(np.abs(got - ref))) if got.shape == ref.shape \
+            else None
+        if err is None or err > 1e-5:
+            raise AssertionError(f"multihost {fmt}: {got.shape} vs "
+                                 f"{ref.shape}, max |reassembled - serial| "
+                                 f"{err}")
+        secs = max(r[fmt + "_s"] for r in res)
+        out[fmt] = {"max_abs_err": err, "sps": len(ref) * 25 / secs}
+        log("multihost", f"README graph, {fmt} wire, ('time',) mesh of "
+                         f"{2 * MH_NPROC} over {MH_NPROC} processes (gloo): "
+                         f"blocks of {[len(b[0]) for b in blocks]} a chunk "
+                         f"reassembled, max |multihost - serial| {err:.3g} "
+                         f"(limit 1e-5); {len(ref) * 25 / secs / 1e6:.2f} M "
+                         f"complex samples/s (slowest process)")
+    got = {}
+    for r in res:
+        (lo, hi), msgs = r["pocsag"]
+        got.update({lo + i: m for i, m in enumerate(msgs)})
+    want = {c: [POCSAG_SENT[c]] if c in POCSAG_SENT else []
+            for c in range(8)}
+    if got != want:
+        raise AssertionError(f"multihost bank-host: {got}, sent {want}")
+    counts = [r["launches"] for r in res]
+    if any(v for c in counts for v in c.values()):
+        raise AssertionError(f"multihost: kernel launches {counts}")
+    out["launches"] = counts
+    log("multihost", f"bank-host graph on a ('channel',) mesh of 8 over "
+                     f"{MH_NPROC} processes: rows "
+                     f"{[r['pocsag'][0] for r in res]}, each row's messages "
+                     f"as sent; kernel launches {counts}; the phase "
+                     f"{wall:.1f} s (workers' start, CUDA and gloo "
+                     f"set-up included)")
+    return out
+
+
+def phase_embed(tmp, dev):
+    """The C embedding API on the card: cc builds native/src/embed.c and
+    the port's lifecycle program (utils/embed.py); the program runs its
+    error paths (a raising script, a script with no top, start with no
+    graph), then a finite graph on the card (start, status running,
+    wait, status stopped, stop) and an endless one (start, stop).  The
+    finite graph's output must equal the same graph run from Python."""
+    from luaradio_tpu_torch.utils import embed
+    t0 = time.monotonic()
+    lib, prog = embed.build()
+    built = time.monotonic() - t0
+    out = os.path.join(tmp, "embed.f32")
+    t0 = time.monotonic()
+    r = embed.run_lifecycle(torch.device(dev).type, out, timeout=180)
+    wall = time.monotonic() - t0
+    lines = r.stdout.splitlines()
+    if r.returncode != 0 or lines[-1:] != ["embed API lifecycle OK"] \
+            or "running: 1" not in lines:
+        raise AssertionError(f"embed: rc {r.returncode}\n{r.stdout}\n"
+                             f"{r.stderr[-3000:]}")
+    top, sink = CompositeBlock(), _Collect()
+    top.connect(IQFileSource(f"{out}.iq", "f32le", 1e6),
+                FrequencyDiscriminatorBlock(1.25),
+                LowpassFilterBlock(64, 1e5), DownsamplerBlock(4), sink)
+    top.run(device=dev)
+    got, exp = np.fromfile(out, np.float32), np.concatenate(sink.got)
+    if got.shape != exp.shape or not np.array_equal(got, exp):
+        raise AssertionError(f"embed: the C API's output {got.shape} is "
+                             f"not the Python run's {exp.shape}")
+    log("embed", f"{os.path.basename(str(lib))} and "
+                 f"{os.path.basename(str(prog))} built in {built:.2f} s; the "
+                 f"lifecycle on {torch.device(dev).type} in {wall:.2f} s: "
+                 f"{'; '.join(lines[:-1])}; {len(got)} samples equal to the "
+                 f"Python run's")
+    return {"build_s": built, "lifecycle_s": wall}
+
+
 def profile_run(run, out, what):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -4044,6 +4479,9 @@ def profile_path(argv):
 
 def main(argv):
     faulthandler.dump_traceback_later(HANG_S, exit=True)
+    if argv[:1] == ["--multihost-worker"]:
+        mh_worker(int(argv[1]), argv[2])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -4135,9 +4573,10 @@ def main(argv):
                             "classes_sps": {k: v["sps"]
                                             for k, v in classes.items()}}))
     with tempfile.TemporaryDirectory() as tmp:
-        blocks = phase_blocks(tmp, dev, smi)
+        blocks = phase_blocks(tmp, dev, smi, k3["chain_ns_per_step"])
     k3["blocks_path"] = {"launches": blocks["k3_launches"],
-                         "max_abs_err": blocks["k3_err"]}
+                         "max_abs_err": blocks["k3_err"],
+                         "alone_2_22": blocks["k3_alone"]}
     k3["max_abs_err"] = max(k3["max_abs_err"], blocks["k3_err"])
     overlap["blocks_path"] = {"launches": blocks["scan_launches"],
                               "max_abs_err": blocks["scan_err"]}
@@ -4159,6 +4598,18 @@ def main(argv):
         del wires
         net = phase_net(tmp, dev, paths, n, rds_path, rds_packets)
         phase_plot_tx(tmp, dev)
+        tsh, serial_audio = phase_time(tmp, dev, smi, paths, rds_path, sent,
+                                       rds_packets)
+        mh = phase_multihost(tmp, dev, paths, serial_audio)
+        emb = phase_embed(tmp, dev)
+    for e, key in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
+        e["time_path_launches"] = tsh["launches"][key]
+        e["multihost_path_launches"] = [c[key] for c in mh["launches"]]
+    log("time", json.dumps({"device": smi, **{k: v for k, v in tsh.items()
+                                              if k != "launches"},
+                            "multihost": {k: v for k, v in mh.items()
+                                          if k != "launches"},
+                            "embed": emb}))
     k3["live_path"] = {f"rtlsdr_{k}": live[k]["k3_launches"]
                        for k in ("am_synchronous", "rds")}
     overlap["live_path"] = {f"rtlsdr_{k}": live[k]["scan_launches"]

@@ -207,6 +207,28 @@ class AGCBlock(SignalBlock):
         y = torch.where(active, torch.sqrt(g) * x, x)
         return (p[..., -1], g[..., -1]), y
 
+    def process_sharded(self, state, x, *, axis):
+        # both 1-pole recurrences as distributed prefix scans; the gain's
+        # data-valued coefficient (the hold below threshold) goes through
+        # the same affine combine, and the final states come from the
+        # summaries the scans gathered
+        from luaradio_tpu_torch.parallel.time import (
+            linrec_first_order_sharded)
+        p0, g0 = state
+        ap, ag = self._power_alpha, self._gain_alpha
+        power_in = x.abs().to(torch.float32) ** 2
+        p, p_final = linrec_first_order_sharded(
+            power_in * float(ap), float(np.float32(1.0) - ap), p0, axis,
+            with_final=True)
+        active = p >= float(self._threshold)
+        a = torch.where(active, float(np.float32(1.0) - ag), 1.0)
+        u = torch.where(active, float(ag * self._target)
+                        / torch.clamp(p, min=1e-30), 0.0)
+        g, g_final = linrec_first_order_sharded(u, a, g0, axis,
+                                                with_final=True)
+        y = torch.where(active, torch.sqrt(g) * x, x)
+        return (p_final, g_final), y
+
 
 class PowerSquelchBlock(SignalBlock):
     """Zero the output while the 1-pole average power is below a threshold
@@ -234,6 +256,17 @@ class PowerSquelchBlock(SignalBlock):
                                float(np.float32(1.0) - a), state)
         y = torch.where(p >= float(self._threshold), x, torch.zeros_like(x))
         return p[..., -1], y
+
+    def process_sharded(self, state, x, *, axis):
+        from luaradio_tpu_torch.parallel.time import (
+            linrec_first_order_sharded)
+        a = self._alpha
+        power_in = x.abs().to(torch.float32) ** 2
+        p, p_final = linrec_first_order_sharded(
+            float(a) * power_in, float(np.float32(1.0) - a), state, axis,
+            with_final=True)
+        y = torch.where(p >= float(self._threshold), x, torch.zeros_like(x))
+        return p_final, y
 
 
 class ZeroCrossingClockRecoveryBlock(SignalBlock):
@@ -294,6 +327,52 @@ class ZeroCrossingClockRecoveryBlock(SignalBlock):
             off0 - float(n) + m[..., -1] * p)
         return (s[..., -1], off_end), y
 
+    def process_sharded(self, state, x, *, axis):
+        """Time-sharded form: the hysteresis recurrence as an affine
+        prefix scan, the most recent crossing as a distributed cummax over
+        GLOBAL sample indices, and the pulse count's previous value as a
+        1-sample halo."""
+        from luaradio_tpu_torch.parallel.time import (
+            cummax_sharded, linrec_first_order_sharded)
+        h0, off0 = state
+        p = float(self._period)
+        n_local = x.shape[-1]
+        n_global = float(n_local * axis.size)
+        thr = float(np.float32(self.threshold))
+        raw = torch.where(x > thr, 1.0,
+                          torch.where(x < thr, -1.0, 0.0)).to(torch.float32)
+        hold = raw == 0.0
+        s, s_final = linrec_first_order_sharded(
+            raw, hold.to(torch.float32), h0, axis, with_final=True)
+        s_halo = axis.left_halo(s, 1, first=torch.as_tensor(h0)[..., None])
+        cross = (s != torch.cat([s_halo, s[..., :-1]], -1)) & ~hold
+
+        # global sample indices of each local shard
+        lead = (-1,) + (1,) * (x.dim() - 1)
+        idx = (torch.arange(n_local, dtype=torch.float32, device=x.device)
+               + (axis.index(x.device).to(torch.float32)
+                  * float(n_local)).view(lead))
+        c = cummax_sharded(torch.where(cross, idx, -1.0), axis)
+        has = c >= 0.0
+
+        k = idx - c + 1.0
+        m_cross = self._pulse_count(k, float(self._period / 2))
+        m_free = self._pulse_count(idx + 1.0, off0[..., None])
+        m = torch.where(has, m_cross, m_free)
+        m_halo = axis.left_halo(m, 1)
+        m_prev = torch.where(cross, 0.0,
+                             torch.cat([m_halo, m[..., :-1]], -1))
+        y = torch.where(m > m_prev, 1.0, -1.0).to(torch.float32)
+
+        # the last sample's (k, m, has): one exchange for all three
+        gl = axis.last(torch.stack([k[..., -1], m[..., -1],
+                                    has[..., -1].to(torch.float32)], -1))
+        k_l, m_l, has_l = gl[..., 0], gl[..., 1], gl[..., 2] > 0
+        off_end = torch.where(has_l,
+                              float(self._period / 2) - k_l + m_l * p,
+                              off0 - n_global + m_l * p)
+        return (s_final, off_end), y
+
 
 class BinaryPhaseCorrectorBlock(SignalBlock):
     """Rotate out the moving-average BPSK phase offset, estimated from every
@@ -334,7 +413,42 @@ class BinaryPhaseCorrectorBlock(SignalBlock):
         y = x * torch.polar(torch.ones_like(ma), -ma)
         return seq[..., -num:], y.to(torch.complex64)
 
+    def process_sharded(self, state, x, *, axis):
+        """Time-sharded form: the moving average over sample-point phases
+        is a distributed cumulative sum minus its ``num``-point delay,
+        ma[j] = (CS[j + num + 1] - CS[j + 1]) / num over the virtual
+        sequence state ++ phases, the carried prefix entering shard 0 as
+        the delay line."""
+        from luaradio_tpu_torch.parallel.time import (cumsum_sharded,
+                                                      delay_sharded)
+        interval, num = self.sample_interval, self.num_samples
+        n = x.shape[-1]
+        phi = torch.angle(x[..., ::interval])
+        if num > phi.shape[-1]:
+            raise NotImplementedError(
+                f"{self.name}: averaging window ({num} points) exceeds the "
+                f"per-shard sample points ({phi.shape[-1]}); increase "
+                f"chunk_size")
+        half_pi, pi = float(np.float32(np.pi / 2)), float(np.float32(np.pi))
+        phi = torch.where(phi < -half_pi, phi + pi, phi)
+        phi = torch.where(phi > half_pi, phi - pi, phi)
+        gcs = cumsum_sharded(phi, axis)                  # global inclusive
+        st_cs = torch.cumsum(state, dim=-1)              # carried prefix
+        carry = st_cs - st_cs[..., -1:]                  # CS[j+1] - total
+        ma_pts = (gcs - delay_sharded(gcs, num, axis, carry=carry)) \
+            / float(num)
+        ma = torch.repeat_interleave(ma_pts, interval, dim=-1)[..., :n]
+        y = x * torch.polar(torch.ones_like(ma), -ma)
+        return axis.tail(phi, num), y.to(torch.complex64)
+
 
 __all__ = ["PLLBlock", "PilotRecoveryBlock", "AGCBlock", "PowerSquelchBlock",
            "ZeroCrossingClockRecoveryBlock", "BinaryPhaseCorrectorBlock",
            "pilot_normalize_multiply"]
+
+# PilotRecoveryBlock's state is a pure FIR input tail: the generic halo
+# exchange (SignalBlock.process_sharded) is exact for it.  PLLBlock keeps
+# the default, which raises: its per-sample feedback cannot time-shard
+# (parallel/time.py has pll_linear_sharded for callers that handle
+# acquisition themselves).
+PilotRecoveryBlock.tail_state = True

@@ -62,6 +62,21 @@ class SamplerBlock(SignalBlock):
         emit = (clock > 0) & (s_prev < 0)
         return s[..., -1], (data, emit)
 
+    def process_sharded(self, state, data, clock, *, axis):
+        # the hysteresis as a distributed affine prefix scan, the previous
+        # clock state as a 1-sample halo; the (values, mask) pair shards
+        # on time like any other boundary tensor
+        from luaradio_tpu_torch.parallel.time import (
+            linrec_first_order_sharded)
+        raw = torch.where(clock > 0, 1.0,
+                          torch.where(clock < 0, -1.0, 0.0)).to(torch.float32)
+        s, s_final = linrec_first_order_sharded(
+            raw, (raw == 0.0).to(torch.float32), state, axis,
+            with_final=True)
+        halo = axis.left_halo(s, 1, first=torch.as_tensor(state)[..., None])
+        emit = (clock > 0) & (torch.cat([halo, s[..., :-1]], -1) < 0)
+        return s_final, (data, emit)
+
 
 class SlicerBlock(SignalBlock):
     """Float32 -> Bit by threshold (reference: slicer.lua).  Dual-domain."""
@@ -102,6 +117,13 @@ class DifferentialDecoderBlock(SignalBlock):
         if self.invert:
             y = (y + 1) % 2
         return x[..., -1], y
+
+    def process_sharded(self, state, x, *, axis):
+        # one halo exchange: each shard's previous bit (the carried one on
+        # shard 0) and the stream's last bit as the next carry
+        halo, tail = axis.halo_and_tail(x, 1, first=state[..., None])
+        _, y = self.process(halo[..., 0], x)
+        return tail[..., 0], y
 
     def process_host(self, x):
         x = np.asarray(x, dtype=np.uint8)
@@ -255,3 +277,5 @@ __all__ = [
     "SamplerBlock", "SlicerBlock", "DifferentialDecoderBlock",
     "ManchesterDecoderBlock", "PreambleSamplerBlock",
 ]
+
+SlicerBlock.time_local = True   # a stateless threshold

@@ -148,6 +148,25 @@ class IIRFilterBlock(SignalBlock):
         y = x * self._b0 + s_prev
         return s[..., -1:], y
 
+    def process_sharded(self, state, x, *, axis):
+        # the state recurrence over the shards: order 1 as a distributed
+        # first-order prefix, order p through one gather of the shards'
+        # p-vector summaries (ops/scan.py iir_apply_sharded)
+        if self._order == 0:
+            return state, x * self._b0
+        if self._order > 1:
+            y, state = scan_ops.iir_apply_sharded(x, self._A, self._g,
+                                                  self._b0, state, axis)
+            return state, y
+        from luaradio_tpu_torch.parallel.time import (
+            linrec_first_order_sharded)
+        s_in = state[..., 0]
+        s, s_final = linrec_first_order_sharded(
+            x * self._g1, self._pole, s_in, axis, with_final=True)
+        halo = axis.left_halo(s, 1, first=s_in[..., None])
+        y = x * self._b0 + torch.cat([halo, s[..., :-1]], dim=-1)
+        return s_final[..., None], y
+
     def fir_equivalent(self):
         """Graph-optimizer protocol: the truncated impulse response when the
         filter decays into float32 noise quickly enough, else None.  See
@@ -454,3 +473,10 @@ __all__ = [
     "RootRaisedCosineFilterBlock", "PulseMatchedFilterBlock",
     "ManchesterMatchedFilterBlock",
 ]
+
+# The FIR family carries pure input tails (fir_init_state,
+# fir_fft_init_state): the generic halo exchange of
+# SignalBlock.process_sharded is exact for them.
+for _cls in (FIRFilterBlock, DecimatingFIRBlock, HilbertTransformBlock):
+    _cls.tail_state = True
+del _cls

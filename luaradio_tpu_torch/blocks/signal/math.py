@@ -183,3 +183,13 @@ __all__ = [
     "ComplexToRealBlock", "ComplexToImagBlock", "ComplexToFloatBlock",
     "RealToComplexBlock", "FloatToComplexBlock",
 ]
+
+# Every elementwise block has no coupling along time: its process() is
+# exact on stacked time shards as it is (core/block.py SignalBlock).
+for _cls in (AddBlock, SubtractBlock, MultiplyBlock, MultiplyConjugateBlock,
+             MultiplyConstantBlock, AddConstantBlock, AbsoluteValueBlock,
+             ComplexConjugateBlock, ComplexMagnitudeBlock, ComplexPhaseBlock,
+             ComplexToRealBlock, ComplexToImagBlock, ComplexToFloatBlock,
+             RealToComplexBlock, FloatToComplexBlock):
+    _cls.time_local = True
+del _cls

@@ -43,6 +43,21 @@ class FrequencyTranslatorBlock(SignalBlock):
         y, phase = self._ramp.rotate(x, state)
         return phase, y
 
+    def process_sharded(self, state, x, *, axis):
+        # per-shard phase offset omega * (shard index * shard length),
+        # reduced mod 2 pi in float64 on the host: no exchange at all
+        two_pi = np.float32(2 * np.pi)
+        n_local = x.shape[-1]
+        offs = np.mod(self._ramp.omega * n_local
+                      * np.arange(axis.lo, axis.hi, dtype=np.float64),
+                      2 * np.pi).astype(np.float32)
+        lead = (-1,) + (1,) * (x.dim() - 2)
+        phase0 = state + torch.from_numpy(offs).to(x.device).view(lead)
+        y, _ = self._ramp.rotate(x, phase0)
+        new = state + np.float32(np.mod(self._ramp.omega * n_local
+                                        * axis.size, 2 * np.pi))
+        return new - two_pi * torch.round(new / two_pi), y
+
 
 class FrequencyDiscriminatorBlock(SignalBlock):
     """y[n] = arg(x[n] * conj(x[n-1])) / (2*pi*modulation_index)
@@ -65,6 +80,14 @@ class FrequencyDiscriminatorBlock(SignalBlock):
         y = torch.atan2(tmp.imag, tmp.real) * inv_gain
         return x[..., -1], y
 
+    def process_sharded(self, state, x, *, axis):
+        # one halo exchange (frequencydiscriminator.lua carries the same
+        # single sample): each shard's previous sample, the carried one on
+        # shard 0, and the stream's last sample as the next carry
+        halo, tail = axis.halo_and_tail(x, 1, first=state[..., None])
+        _, y = self.process(halo[..., 0], x)
+        return tail[..., 0], y
+
 
 class FrequencyModulatorBlock(SignalBlock):
     """y[n] = exp(j phi[n]), phi[n] = phi[n-1] + 2 pi k x[n] (reference:
@@ -83,6 +106,18 @@ class FrequencyModulatorBlock(SignalBlock):
     def process(self, state, x):
         delta = float(np.float32(2 * np.pi * self.modulation_index))
         phi, carry = cumsum_phase(x * delta, state)
+        return carry, torch.complex(torch.cos(phi), torch.sin(phi))
+
+    def process_sharded(self, state, x, *, axis):
+        # the phase accumulator as a distributed cumulative sum; the carry
+        # from the same gathered totals
+        from luaradio_tpu_torch.parallel.time import cumsum_sharded
+        delta = float(np.float32(2 * np.pi * self.modulation_index))
+        two_pi = float(np.float32(2 * np.pi))
+        psum, total = cumsum_sharded(x * delta, axis, with_total=True)
+        phi = psum + state[..., None]
+        carry = state + total
+        carry = carry - two_pi * torch.round(carry / two_pi)
         return carry, torch.complex(torch.cos(phi), torch.sin(phi))
 
 
@@ -241,3 +276,8 @@ __all__ = ["FrequencyTranslatorBlock", "FrequencyDiscriminatorBlock",
            "FrequencyModulatorBlock", "PulseAmplitudeModulatorBlock",
            "QuadratureAmplitudeModulatorBlock",
            "DiscriminatorDecimatingFIRBlock"]
+
+# Symbol mapping and zero stuffing: no coupling along time (the chunk
+# planner keeps each shard a whole number of symbols).
+PulseAmplitudeModulatorBlock.time_local = True
+QuadratureAmplitudeModulatorBlock.time_local = True

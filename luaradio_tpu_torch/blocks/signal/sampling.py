@@ -209,10 +209,12 @@ __all__ = ["DownsamplerBlock", "UpsamplerBlock", "DelayBlock",
            "InterleaveBlock", "DeinterleaveBlock", "NopBlock",
            "ThrottleBlock"]
 
-# Aligned rate changers and pass-throughs have no coupling along time, as
-# the JAX package marks them (its time sharding runs them per shard as
-# they are).
+# Aligned rate changers and pass-throughs have no coupling along time:
+# the chunk planner keeps every shard's chunk a multiple of their phase
+# period, so process() is exact per time shard.  DelayBlock's state is its
+# input tail, which the generic halo exchange carries (core/block.py).
 for _cls in (DownsamplerBlock, UpsamplerBlock, InterleaveBlock,
              DeinterleaveBlock, NopBlock):
     _cls.time_local = True
 del _cls
+DelayBlock.tail_state = True

@@ -101,6 +101,29 @@ class SignalSource(SignalSourceBlock):
             y = (2.0 * pos - 1.0) * a + off
         return state, y
 
+    def generate_sharded(self, state, length: int, axis):
+        """Per-shard generation: the carried phase offset by omega *
+        shard index * length (reduced mod the waveform's period in float64
+        on the host), the global state advanced by the whole chunk."""
+        if self.signal == "constant":
+            _, y = self.generate(state, length)
+            return state, y.expand(axis.n_local, length)
+        omega = 2 * np.pi * self.frequency / self.rate
+        if self.signal == "exponential":
+            period = 2 * np.pi
+        else:
+            period, omega = 1.0, omega / (2 * np.pi)
+        offs = np.mod(omega * length * np.arange(axis.lo, axis.hi,
+                                                 dtype=np.float64),
+                      period).astype(np.float32)
+        _, y = self.generate(state + torch.from_numpy(offs).to(self.device),
+                             length)
+        new = state + np.float32(np.mod(omega * length * axis.size, period))
+        if period == 1.0:
+            return torch.remainder(new, 1.0), y
+        two_pi = float(np.float32(2 * np.pi))
+        return new - two_pi * torch.round(new / two_pi), y
+
 
 class UniformRandomSource(SignalSourceBlock):
     """Uniform random samples of any basic type (reference:
@@ -139,6 +162,27 @@ class UniformRandomSource(SignalSourceBlock):
         y = torch.randint(int(a), int(b) + 1, (length,), generator=state,
                           device=dev, dtype=torch.int32)
         return state, y.to(torch.uint8)
+
+    def generate_sharded(self, state, length: int, axis):
+        """Per-shard streams: shard d draws from a generator of its own,
+        seeded with ``seed`` and d folded together (the JAX package folds
+        the shard index into its subkey), so the stream is reproducible
+        for a seed and a shard count.  Under a time mesh the state is the
+        tuple of this process's shard generators, made at the first
+        chunk."""
+        if not isinstance(state, tuple):
+            state = tuple(
+                torch.Generator(device=self.device).manual_seed(
+                    _fold_seed(self.seed, d))
+                for d in range(axis.lo, axis.hi))
+        return state, torch.stack([self.generate(g, length)[1]
+                                   for g in state])
+
+
+def _fold_seed(seed: int, index: int) -> int:
+    """A 63-bit seed from ``seed`` and a shard ``index``."""
+    hi, lo = np.random.SeedSequence([seed, index]).generate_state(2)
+    return ((int(hi) << 32) | int(lo)) >> 1
 
 
 __all__ = ["ZeroSource", "NullSource", "SignalSource", "UniformRandomSource"]

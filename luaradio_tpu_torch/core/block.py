@@ -224,21 +224,66 @@ class Block:
 class SignalBlock(Block):
     """A device block: a function of torch tensors on the graph's device,
     run inside its segment's step.  State is explicit and threaded through
-    process().  (Time-axis sharding over several cards is a later slice of
-    the port.)"""
+    process().
+
+    Time-axis sharding contract (the JAX package's core/block.py; a mesh
+    with a ``"time"`` axis runs ANY graph of blocks that keep it,
+    parallel/mesh.py).  Under a time mesh a block receives each input as
+    ``[D_local, ..., T_local]``, the shards this process holds stacked on
+    the leading axis, and the one global carried state (no shard axis):
+
+    * ``time_local = True``: no coupling along time (elementwise math,
+      zero stuffing, aligned decimation), so process() is exact on the
+      stacked shards as they are.
+    * ``tail_state = True``: the carried state is exactly the last
+      ``state.shape[-1]`` INPUT samples (FIR family, delay lines).  The
+      default process_sharded() feeds each shard its left neighbour's
+      input tail (the carried state on shard 0) and returns the stream's
+      global input tail as the new state, both from one halo exchange.
+    * otherwise a block that can shard overrides process_sharded()
+      (recurrences through distributed prefix scans, mixers through
+      per-shard phase offsets); a block that cannot (a per-sample
+      feedback loop, a data-dependent output count) keeps the default,
+      which raises with the block's name.
+
+    Every process_sharded returns the true global state, the same on
+    every shard and every process, so the next chunk may read it on any
+    shard (the JAX package reads tail states on shard 0 only; the port
+    has no counterpart of its ``shard0_state``)."""
 
     domain = "device"
-    #: no coupling along time (elementwise math, zero stuffing, aligned
-    #: decimation): process() on any split of the time axis is exact.
-    #: The JAX package's time sharding reads it; the port marks the same
-    #: blocks for the time-sharding slice.
+    #: no coupling along time: process() on any split of the time axis
+    #: is exact
     time_local = False
+    #: the carried state is the last state.shape[-1] input samples
+    tail_state = False
 
     def init_state(self) -> Any:
         return None
 
     def process(self, state, *xs):
         raise NotImplementedError
+
+    def process_sharded(self, state, *xs, axis):
+        """Run one chunk with its time (last) axis sharded over ``axis``
+        (parallel/mesh.py Axis): ``xs`` are ``[D_local, ..., T_local]``,
+        ``state`` and the returned state the global carry."""
+        if self.time_local:
+            return self.process(state, *xs)
+        if self.tail_state and len(xs) == 1:
+            x = xs[0]
+            k = state.shape[-1]
+            if k > x.shape[-1]:
+                raise NotImplementedError(
+                    f"{self.name}: carried tail ({k}) exceeds the per-shard "
+                    f"chunk ({x.shape[-1]}); increase chunk_size")
+            halo, tail = axis.halo_and_tail(x.to(state.dtype), k,
+                                            first=state)
+            _, y = self.process(halo, x)
+            return tail, y
+        raise NotImplementedError(
+            f"{self.name} does not support time-axis sharding; use channel "
+            f"banking (mesh with a 'channel' axis) for this graph")
 
 
 class HostBlock(Block):
@@ -278,6 +323,16 @@ class SignalSourceBlock(SourceBlock, SignalBlock):
 
     def generate(self, state, length: int):
         raise NotImplementedError
+
+    def generate_sharded(self, state, length: int, axis):
+        """This process's shards of the chunk, ``[D_local, length]``
+        (global chunk = length * axis.size).  Sources whose output depends
+        on the absolute sample position (oscillators, generators)
+        override this with per-shard offsets or streams."""
+        if self.time_local:
+            return self.generate(state, length)
+        raise NotImplementedError(
+            f"{self.name} does not support time-axis sharding")
 
 
 class HostSourceBlock(SourceBlock, HostBlock):

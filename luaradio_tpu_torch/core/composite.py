@@ -171,40 +171,44 @@ class CompositeBlock(Block):
     # -- run API (mirrors composite.lua:514-950) ---------------------------
     def run(self, mode: str = "fused", max_chunks: int | None = None,
             chunk_size: int | None = None, optimize: bool = True,
-            mesh=None, channels: int | None = None, *, device=None):
+            mesh=None, channels: int | None = None,
+            channel_axis: str = "channel", time_axis: str = "time", *,
+            device=None):
         """Run the flow graph to completion (EOF of any source).
 
-        The positional parameters are the JAX package's, in its order, up
-        to ``channels``.  ``mode`` is "fused" (the read-ahead thread and
-        the pipelined pump) or "eager" (sources read in the pump, never
-        pipelined; the same segments, so the same output bit for bit).
-        ``mesh`` other than None raises NotImplementedError: time sharding
-        over several cards is a later slice of the port.  The JAX
-        package's ``channel_axis``, ``time_axis`` and ``ingest`` are left
-        out (the mesh axes come with time sharding; ``ingest`` was taken
-        out of the port on purpose).  ``device`` defaults to the CUDA card
-        (core/platform.py resolve_device); ``device="cpu"`` runs the plain
-        PyTorch path.  ``channels=C`` runs the graph as a bank of C
-        channels on the one device (core/runtime.py Runner), the
-        single-card form of the JAX package's ``run(mesh=<channel mesh>,
-        channels=C)``."""
+        The positional parameters are the JAX package's, in its order;
+        its ``ingest`` is left out (taken out of the port on purpose).
+        ``mode`` is "fused" (the read-ahead thread and the pipelined pump)
+        or "eager" (sources read in the pump, never pipelined; the same
+        segments, so the same output bit for bit).  ``device`` defaults
+        to the CUDA card (core/platform.py resolve_device);
+        ``device="cpu"`` runs the plain PyTorch path.  ``channels=C``
+        runs the graph as a bank of C channels on the one device
+        (core/runtime.py Runner).  With ``mesh`` (parallel/mesh.py), a
+        mesh axis named ``channel_axis`` banks a leading channel dimension
+        and an axis named ``time_axis`` shards every stream's time axis
+        (blocks exchange carried state as halos and distributed prefixes,
+        the SignalBlock time-sharding contract); both may be present."""
         from luaradio_tpu_torch.core.runtime import Runner
         runner = Runner(self, mode=mode, chunk_size=chunk_size,
                         optimize=optimize, mesh=mesh, channels=channels,
+                        channel_axis=channel_axis, time_axis=time_axis,
                         device=device)
         runner.run(max_chunks=max_chunks)
         return self
 
     def start(self, mode: str = "fused", chunk_size: int | None = None,
               optimize: bool = True, mesh=None,
-              channels: int | None = None, *, device=None):
+              channels: int | None = None, channel_axis: str = "channel",
+              time_axis: str = "time", *, device=None):
         """Run the flow graph on a thread of its own (see :meth:`run`)."""
         from luaradio_tpu_torch.core.runtime import Runner
         if self._runner is not None and self._runner.running:
             raise RuntimeError("flow graph already running")
         self._runner = Runner(self, mode=mode, chunk_size=chunk_size,
                               optimize=optimize, mesh=mesh,
-                              channels=channels, device=device)
+                              channels=channels, channel_axis=channel_axis,
+                              time_axis=time_axis, device=device)
         self._runner.start()
         return self
 
@@ -235,7 +239,8 @@ class Graph:
     graph."""
 
     def __init__(self, top: CompositeBlock, chunk_size: int | None = None,
-                 optimize: bool = True, device=None):
+                 optimize: bool = True, shards: int = 1,
+                 fuse_kernels: bool = True, device=None):
         from luaradio_tpu_torch.core.platform import resolve_device
         self.device = resolve_device(device)
         self.blocks, self.edges = top._flatten()
@@ -247,9 +252,12 @@ class Graph:
         self._demote_duals()
         self._validate_rates()
         from luaradio_tpu_torch.core import optimize as opt
+        #: allow the CUDA-kernel block substitution (off under a mesh, as
+        #: the JAX package turns its Pallas fusion off there)
+        self.fuse_kernels = fuse_kernels and shards == 1
         self.n_fusions = opt.optimize_graph(self) if optimize else 0
         self._propagate_batch()
-        self._plan_chunks(chunk_size)
+        self._plan_chunks(chunk_size, shards)
         self._assign_stages()
         self._initialize()
 
@@ -366,7 +374,10 @@ class Graph:
     # seeded at their rate ratio so multi-source graphs stay consistent.
     DEFAULT_CHUNK = 1 << 18  # target samples per chunk at the fastest edge
 
-    def _plan_chunks(self, chunk_size: int | None):
+    def _plan_chunks(self, chunk_size: int | None, shards: int = 1):
+        # ``shards`` > 1 (time sharding) also requires every edge's chunk
+        # to split evenly over the shards AND every per-shard chunk to
+        # meet the block's own chunk_multiple()
         target = chunk_size or self.DEFAULT_CHUNK
         out_q: dict[int, Fraction] = {}  # id(block) -> output chunk fraction
 
@@ -405,6 +416,7 @@ class Graph:
         for b in self.order:
             q = out_q[id(b)] / b.get_rate_ratio() if b.inputs else out_q[id(b)]
             m = b.chunk_multiple() if b.domain == "device" else 1
+            m *= shards
             # base * q must be a positive integer divisible by m
             d = (q.denominator * m) // math.gcd(q.numerator, q.denominator * m)
             required = required // math.gcd(required, d) * d

@@ -187,9 +187,11 @@ def _fuse_disc_fir(graph) -> int:
     Pallas call is a fusion barrier (its measurement; core/optimize.py
     there).  The port keeps the same default so both packages build the
     same graphs; whether the kernel pays on the card is for a later
-    measurement to decide.
+    measurement to decide.  Off under a mesh (``graph.fuse_kernels``),
+    where the JAX package turns its Pallas fusion off too.
     """
-    if not os.environ.get("LUARADIO_TPU_FORCE_WBFM_KERNEL"):
+    if not os.environ.get("LUARADIO_TPU_FORCE_WBFM_KERNEL") \
+            or not graph.fuse_kernels:
         return 0
     from luaradio_tpu_torch.core.composite import PortRef
     from luaradio_tpu_torch.blocks.signal.filtering import DecimatingFIRBlock

@@ -24,6 +24,19 @@ chunks arrive as [C, n], device sources are generated once and replicated
 C times, and mid-graph host blocks run as one clone per channel on their
 row of the boundary arrays.
 
+A mesh (``Runner(..., mesh=...)``, parallel/mesh.py) with a ``"time"``
+axis of D shards splits every chunk into D consecutive shards: each
+segment reshapes its inputs to ``[D, ..., T/D]`` (the shards on a leading
+axis), runs each block's process_sharded (the SignalBlock time-sharding
+contract: halos and distributed prefixes over the shards) and joins its
+outputs again, so boundary arrays and host blocks see the global stream.
+A ``"channel"`` axis is the bank above; both may be present.  With a
+process group the processes split the mesh's first axis: over time, each
+process reads the whole chunk but keeps its contiguous block of it (the
+halos and summaries cross processes) and its sinks receive that block;
+over channels, each process runs its own range of channels, host clones
+included.
+
 Modes (the JAX package's):
   - "fused": the read-ahead thread and, where no host block feeds a
     device block, the pipelined pump (production path);
@@ -52,6 +65,8 @@ from luaradio_tpu_torch.core.block import (Block, HostSourceBlock,
 from luaradio_tpu_torch.core import trace as trace_mod
 from luaradio_tpu_torch.core.composite import CompositeBlock, Graph, PortRef
 from luaradio_tpu_torch.ops.complexutil import to_device
+from luaradio_tpu_torch.parallel import multihost
+from luaradio_tpu_torch.parallel.mesh import join_shards, split_shards
 
 MODES = ("fused", "eager")
 
@@ -114,9 +129,11 @@ class Segment:
 
     def __init__(self, graph: Graph, blocks: list[Block], bid: dict[int, str],
                  wire_ingest: dict[str, Any] | None = None,
-                 channels: int | None = None):
+                 channels: int | None = None, time_axis=None):
         self.blocks = blocks
         self.channels = channels
+        #: the mesh's time Axis (parallel/mesh.py), or None
+        self.time_axis = time_axis
         self.bid = bid
         self.wire_ingest = wire_ingest or {}
         self._edges = graph.edges
@@ -161,30 +178,46 @@ class Segment:
             self.states[bid[id(b)]] = broadcast_state(b.init_state(), shape)
 
     def run(self, ext: dict) -> dict:
-        """One chunk through the segment's blocks, in order."""
+        """One chunk through the segment's blocks, in order.  Under a time
+        mesh each input [..., T] is reshaped to its shards [D, ..., T/D]
+        (after the wire conversion, which is per sample), the blocks run
+        their sharded forms, and each output is joined back."""
+        ax = self.time_axis
         vals = {}
         for k, v in ext.items():
-            vals[k] = self.wire_ingest[k](v) if k in self.wire_ingest else v
+            v = self.wire_ingest[k](v) if k in self.wire_ingest else v
+            vals[k] = split_shards(v, ax.n_local) if ax else v
         bid, edges = self.bid, self._edges
         for b in self.blocks:
             k = bid[id(b)]
             if isinstance(b, SignalSourceBlock):
-                st, outs = b.generate(self.states[k], self._gen_len[k])
-                if self.channels:
-                    outs = tuple(y.expand((self.channels,) + y.shape)
-                                 for y in (outs if isinstance(
-                                     outs, (tuple, list)) else (outs,)))
+                if ax:
+                    st, outs = b.generate_sharded(
+                        self.states[k], self._gen_len[k] // ax.size, ax)
+                else:
+                    st, outs = b.generate(self.states[k], self._gen_len[k])
+                if self.channels:    # [..., T] -> [..., C, T]
+                    outs = tuple(y.unsqueeze(-2).expand(
+                        y.shape[:-1] + (self.channels, y.shape[-1]))
+                        for y in (outs if isinstance(
+                            outs, (tuple, list)) else (outs,)))
             else:
                 ins = [vals[f"{bid[id(src.block)]}.{src.index}"]
                        for src in (edges[PortRef(b, i)]
                                    for i in range(len(b.inputs)))]
-                st, outs = b.process(self.states[k], *ins)
+                if ax:
+                    st, outs = b.process_sharded(self.states[k], *ins,
+                                                 axis=ax)
+                else:
+                    st, outs = b.process(self.states[k], *ins)
             self.states[k] = st
             if b.masked_output or (len(b.outputs) == 1
                                    and not isinstance(outs, (tuple, list))):
                 outs = (outs,)          # a (values, mask) pair is one port
             for oi, y in enumerate(outs):
                 vals[f"{k}.{oi}"] = y
+        if ax:
+            return {ok: join_shards(vals[ok]) for ok in self.out_keys}
         return {ok: vals[ok] for ok in self.out_keys}
 
 
@@ -271,32 +304,60 @@ class _Prefetcher:
 class Runner:
     """Runs a flow graph on one device (``device=None`` is the CUDA card;
     ``"cpu"`` runs the plain path) in ``mode`` "fused" or "eager" (module
-    docstring); ``trace`` None reads LUARADIO_TPU_TRACE.  ``mesh`` other
-    than None raises: time sharding is a later slice of the port.
+    docstring); ``trace`` None reads LUARADIO_TPU_TRACE.
 
     ``channels=C`` runs it as a bank of C channels (module docstring).
     It is taken from the graph's BankSource when not given; a BankSource
     of another width, or a host source that is not a BankSource, raises,
     and so does a host block that feeds a device block (its per-channel
-    output has no common length to batch)."""
+    output has no common length to batch).
+
+    ``mesh`` (parallel/mesh.py) shards the graph: an axis named
+    ``time_axis`` splits every stream's time axis into shards, an axis
+    named ``channel_axis`` banks channels (``channels`` defaults to its
+    size), in fused mode only.  Across processes a mid-graph host block
+    under a time split raises: it needs the whole stream in one
+    process."""
 
     def __init__(self, top: CompositeBlock, mode: str = "fused",
                  chunk_size: int | None = None, trace: bool | None = None,
                  optimize: bool = True, mesh=None,
-                 channels: int | None = None, *, device=None):
+                 channels: int | None = None,
+                 channel_axis: str = "channel", time_axis: str = "time", *,
+                 device=None):
         from luaradio_tpu_torch.blocks.sources.bank import BankSource
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r} (choices: "
                              f"{', '.join(MODES)})")
+        self.mesh = mesh
+        self.time_axis = None           # the mesh's time Axis, if any
+        chan_banked = False
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: time sharding over several cards is not ported yet "
-                "(ROADMAP queue 1, time sharding and multihost)")
+            if mode != "fused":
+                raise ValueError("mesh execution requires mode='fused'")
+            chan_banked = channel_axis in mesh.axis_names
+            if time_axis in mesh.axis_names:
+                self.time_axis = mesh.axis(time_axis)
+            elif not chan_banked:
+                raise ValueError(
+                    f"mesh has neither a {channel_axis!r} nor a "
+                    f"{time_axis!r} axis: nothing to shard over (axes: "
+                    f"{mesh.axis_names})")
+            if mesh.multihost and mesh.axis_names[0] not in (channel_axis,
+                                                             time_axis):
+                raise ValueError(
+                    f"mesh: the processes split its first axis "
+                    f"{mesh.axis_names[0]!r}, which is neither "
+                    f"{channel_axis!r} nor {time_axis!r}")
+            if chan_banked and channels is None:
+                channels = mesh.shape[channel_axis]
+        shards = self.time_axis.size if self.time_axis else 1
         self.mode = mode
         if trace is None:
             trace = trace_mod.enabled_by_env()
         self.tracer = trace_mod.Tracer() if trace else None
         self.graph = g = Graph(top, chunk_size=chunk_size, optimize=optimize,
+                               shards=shards, fuse_kernels=mesh is None,
                                device=device)
         self.device = g.device
         self.bid = {id(b): f"b{i}" for i, b in enumerate(g.order)}
@@ -315,6 +376,41 @@ class Runner:
                                  f"reads its host streams through a "
                                  f"BankSource")
         self.channels = channels
+
+        # Across processes the mesh's first axis is split: over time each
+        # process keeps its contiguous block of every chunk, over channels
+        # it runs its range of channels.  ``_split_axes`` names, for a
+        # source value [C?, T], the mesh axis of each dimension
+        # (parallel/multihost.py local_slices).
+        has_mid_host = any(b.domain == "host" and b.outputs
+                           and not isinstance(b, HostSourceBlock)
+                           for b in g.order)
+        self._split_axes = None
+        self._chan_local = (0, channels) if channels else None
+        if mesh is not None and mesh.multihost:
+            time_split = mesh.axis_names[0] == time_axis
+            if time_split and has_mid_host:
+                raise NotImplementedError(
+                    "multihost time sharding: a mid-graph host block needs "
+                    "the global stream on one host; use a ('channel',) bank "
+                    "mesh (whole channels per host) for framer/decoder "
+                    "graphs" if not chan_banked else
+                    "multihost channel bank: a channel's time axis spans "
+                    "processes, so host blocks cannot see whole channels; "
+                    "order the mesh so each process owns whole channels")
+            if not time_split and channels % mesh.shape[channel_axis]:
+                raise ValueError(
+                    f"channels={channels} does not split evenly over the "
+                    f"mesh's {mesh.shape[channel_axis]} channel rows")
+            self._split_axes = ((channel_axis,) if channels else ()) + (
+                time_axis if time_split else None,)
+            if channels:
+                rows = multihost.local_slices(mesh, (channels,),
+                                              (channel_axis,))[0]
+                self._chan_local = (rows.start, rows.stop)
+        #: channel rows this process runs
+        self._rows = (self._chan_local[1] - self._chan_local[0]
+                      if channels else None)
         # one clone of each mid-graph host block per channel, each with
         # its own state (framers, decoders); their outputs stay on the host
         self._bank_clones: dict[int, list[Block]] = {}
@@ -330,7 +426,7 @@ class Runner:
                         f"channel bank: host block {b.name} feeding a "
                         f"device block is not supported")
                 self._bank_clones[id(b)] = [copy.deepcopy(b)
-                                            for _ in range(channels)]
+                                            for _ in range(self._rows)]
 
         # A host source whose outputs feed only device blocks has its
         # chunks copied to the device by the read-ahead thread, as raw
@@ -374,8 +470,8 @@ class Runner:
             host = [b for b in g.order
                     if g.stage[id(b)] == st and b.domain == "host"
                     and not isinstance(b, HostSourceBlock)]
-            seg = (Segment(g, dev, self.bid, self.wire_ingest, channels)
-                   if dev else None)
+            seg = (Segment(g, dev, self.bid, self.wire_ingest, self._rows,
+                           self.time_axis) if dev else None)
             self.stage_plan.append((seg, host))
 
         # Pipelined pumping (fused mode): when no device block consumes a
@@ -496,7 +592,26 @@ class Runner:
         if any(nvalid.get(f"{self.bid[id(s)]}.0", 1) == 0
                for s in self.sources):
             return None
-        return values, nvalid, eof
+        return {k: self._local(v) for k, v in values.items()}, nvalid, eof
+
+    def _local(self, v):
+        """This process's part of a chunk read in full (every process
+        reads the whole chunk): its channel rows, or its contiguous block
+        of the time axis.  nvalid stays global."""
+        if isinstance(v, list) or self._split_axes is None:
+            return v
+        axes = self._split_axes[-v.ndim:]
+        return v[multihost.local_slices(self.mesh, v.shape, axes)]
+
+    def _nv_local(self, block: Block, nv):
+        """A global valid count at ``block``'s output as a count within
+        this process's time block."""
+        if nv is None or self._split_axes is None \
+                or self._split_axes[-1] is None:
+            return nv
+        sl = multihost.local_slices(self.mesh, (self.graph.out_chunk[id(
+            block)],), self._split_axes[-1:])[0]
+        return min(max(0, nv - sl.start), sl.stop - sl.start)
 
     def _run_segment(self, seg: Segment, values, nvalid, fetches):
         g = self.graph
@@ -562,8 +677,8 @@ class Runner:
                 if not _wants_host(b):
                     ins.append(values[sk])
                     continue
-                ins.append(_to_host(values[sk], nvalid.get(sk),
-                                    src.block.masked_output))
+                ins.append(_to_host(values[sk], self._nv_local(
+                    src.block, nvalid.get(sk)), src.block.masked_output))
             outs = b.process(*ins)
             if outs is not None:
                 if not isinstance(outs, tuple):
@@ -590,19 +705,19 @@ class Runner:
             if isinstance(v, _Banked):
                 rows.append(v.rows)
                 continue
-            nv = nvalid.get(sk)
+            nv = self._nv_local(src.block, nvalid.get(sk))
             if src.block.masked_output:
                 vals, mask = (t.numpy() for t in v)
                 if nv is not None and nv < mask.shape[-1]:
                     mask = mask.copy()
                     mask[..., max(0, nv):] = False
-                rows.append([vals[c][mask[c]] for c in range(self.channels)])
+                rows.append([vals[c][mask[c]] for c in range(self._rows)])
             else:
                 arr = _to_host(v, nv)
-                rows.append([arr[c] for c in range(self.channels)])
+                rows.append([arr[c] for c in range(self._rows)])
         clones = self._bank_clones.get(id(b))
         outs = [(clones[c] if clones else b).process(*(r[c] for r in rows))
-                for c in range(self.channels)]
+                for c in range(self._rows)]
         if clones and b.outputs:
             k = self.bid[id(b)]
             for oi in range(len(b.outputs)):

@@ -47,11 +47,14 @@ from luaradio_tpu_torch.ops.fir import fp32_exact
 _B = 128
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=64, typed=True)
 def _powers(a: float | complex, n: int, device: str):
     """(L [n, n] with L[i, j] = a^(i-j) for i >= j else 0, p [n] = a^(i+1)):
     float32 tensors built in float64 for a real ``a``, complex64 ones built
-    in complex128 for a complex ``a``."""
+    in complex128 for a complex ``a``.  Cached by type as well as value:
+    a complex ``a`` with no imaginary part (a real eigenvalue of the PLL's
+    loop, or the 0 that deep levels reach) equals the float, whose real
+    matrices must not be handed its complex ones."""
     wide, narrow = ((np.complex128, np.complex64) if isinstance(a, complex)
                     else (np.float64, np.float32))
     i = np.arange(n)
@@ -323,6 +326,34 @@ def iir_apply(x: torch.Tensor, amat, g, b0, s0: torch.Tensor):
     return y.reshape(lead + (n,)), s.reshape(lead + (p,))
 
 
+def iir_apply_sharded(x: torch.Tensor, amat, g, b0, s0: torch.Tensor, axis):
+    """Order-p IIR over a time-sharded stream ``x`` [D_local, ..., L]
+    (parallel/time.py; ``axis`` the mesh axis).
+
+    Each shard runs from a zero state; its final state is its summary
+    v_d, and one all_gather of these p-vectors gives every shard the
+    chain s_in(d + 1) = A^L s_in(d) + v_d from s_in(0) = ``s0``, with the
+    static A^L built in float64.  Each shard then runs again from its own
+    s_in(d).  Returns (y [D_local, ..., L], the global final state
+    s_in(D) [..., p], replicated)."""
+    amat = np.ascontiguousarray(amat, np.float32)
+    p = amat.shape[0]
+    lead = x.shape[:-1]
+    _, v_last = iir_apply(x, amat, g, b0, x.new_zeros(lead + (p,)))
+    all_v = axis.all_gather(v_last)                         # [D, ..., p]
+    al = np.linalg.matrix_power(amat.astype(np.float64), x.shape[-1])
+    al_t = torch.from_numpy(al.T.astype(np.float32)).to(x.device).to(
+        x.dtype)
+    s_in = s0.to(x.dtype).expand(all_v.shape[1:])
+    s_ins = []
+    for d in range(axis.size):                              # D is small
+        s_ins.append(s_in)
+        with fp32_exact():
+            s_in = s_in @ al_t + all_v[d]
+    y, _ = iir_apply(x, amat, g, b0, torch.stack(s_ins[axis.lo:axis.hi]))
+    return y, s_in
+
+
 def cumsum_phase(x: torch.Tensor, phase0):
     """Running phase accumulation with wrap-around: phi[n] = phi[n-1] +
     x[n], the carry kept in (-pi, pi] to preserve float32 precision over
@@ -343,4 +374,5 @@ def cummax_blocked(x: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["linrec_first_order", "iir_state_space", "iir_apply",
+           "iir_apply_sharded",
            "cumsum_phase", "cummax_blocked"]

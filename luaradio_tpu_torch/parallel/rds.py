@@ -1,14 +1,15 @@
-"""RDS front-end bank on one card: the RDS receiver's full-rate stages for
-C channels as one step over [C, T] chunks (the JAX package's
-parallel/rds.py, whose step is a shard_map over a (channel, time) mesh).
+"""RDS front-end bank: the RDS receiver's full-rate stages for C channels as
+one step over [C, T] chunks, each stream's time axis sharded over the
+mesh's ``"time"`` axis (the JAX package's parallel/rds.py, whose step is
+a shard_map over a (channel, time) mesh).
 
 FM discriminator, Hilbert transform, 19 kHz pilot recovery with x3
 phase multiplication, 57 kHz coherent demodulation, baseband lowpass and
 the RRC matched filter, with the vectorized pilot (FIR, normalize, de
-Moivre) as in the JAX class.  The output is the full-rate RRC'd BPSK
-soft-symbol stream; the 1187.5-baud tail (clock recovery, sampler,
-decoders) stays on the ordinary blocks.  One time shard: each halo is the
-carried tail (parallel/wbfm.py).  Reference topology:
+Moivre) as in the JAX class, through the halo helpers of
+parallel/time.py.  The output is the full-rate RRC'd BPSK soft-symbol
+stream; the 1187.5-baud tail (clock recovery, sampler, decoders) stays
+on the ordinary blocks.  Reference topology:
 radio/composites/rdsreceiver.lua:24-56.
 """
 
@@ -17,20 +18,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from luaradio_tpu_torch.blocks.signal.carrier import pilot_normalize_multiply
 from luaradio_tpu_torch.core.platform import resolve_device
-from luaradio_tpu_torch.ops.fir import fir_direct
-from luaradio_tpu_torch.parallel.wbfm import _taps, delay, discriminate
+from luaradio_tpu_torch.parallel.mesh import join_shards, split_shards
+from luaradio_tpu_torch.parallel.time import (delay_sharded, fir_sharded,
+                                              pilot_recovery_sharded)
+from luaradio_tpu_torch.parallel.wbfm import _taps, discriminate, time_axis
 from luaradio_tpu_torch.utils import filter_design
 
 
 class RDSBank:
-    """C-channel RDS full-rate front end on one card:
+    """C-channel RDS full-rate front end over a (channel, time) mesh:
     ``step(state, x[C, T] complex) -> (state, soft[C, T] complex)``, the
     57 kHz-demodulated, RRC-matched BPSK stream at the IF rate.  The
     state's six leaves are the JAX class's."""
 
-    def __init__(self, if_rate: float = 228e3, device=None):
+    def __init__(self, mesh, if_rate: float = 228e3, *, device=None):
+        self.mesh = mesh
         self.device = dev = resolve_device(device)
         self.if_rate = if_rate
         nyq = if_rate / 2.0
@@ -44,6 +47,7 @@ class RDSBank:
             101, if_rate, 1.0, 1.0 / 1187.5).astype(np.float32), dev)
         self.gain = 1.25
         self.group_delay = 64  # (129-1)/2 pilot/Hilbert group delay
+        self._axis = time_axis(mesh)
 
     def init_state(self, n_channels: int):
         c, g, dev = n_channels, self.group_delay, self.device
@@ -57,18 +61,22 @@ class RDSBank:
 
     def step(self, state, x):
         disc_prev, ht_tail, dly_carry, bp_tail, lpf_tail, rrc_tail = state
-        g = self.group_delay
-        m = discriminate(x, disc_prev, self.gain)
-        im, _ = fir_direct(m, self.ht_taps, ht_tail)
-        analytic = torch.complex(delay(m, g, ht_tail[..., -g:]), im)
-        p, _ = fir_direct(analytic, self.bp_taps, bp_tail)
-        carrier = pilot_normalize_multiply(p, 3)
-        mix = delay(analytic, g, dly_carry) * carrier.conj()
-        bb, _ = fir_direct(mix, self.lpf_taps, lpf_tail)
-        soft, _ = fir_direct(bb, self.rrc_taps, rrc_tail)
-        new_state = (x[..., -1], m[..., -128:], analytic[..., -g:],
-                     analytic[..., -128:], mix[..., -127:], bb[..., -100:])
-        return new_state, soft
+        ax, g = self._axis, self.group_delay
+        xs = split_shards(x, ax.n_local)
+        m = discriminate(xs, disc_prev, self.gain, ax)
+        im = fir_sharded(m, self.ht_taps, ax, tail=ht_tail)
+        re = delay_sharded(m, g, ax, carry=ht_tail[..., -g:])
+        analytic = torch.complex(re, im)
+        carrier = pilot_recovery_sharded(analytic, self.bp_taps, 3, ax,
+                                         tail=bp_tail)
+        mix = delay_sharded(analytic, g, ax, carry=dly_carry) \
+            * carrier.conj()
+        bb = fir_sharded(mix, self.lpf_taps, ax, tail=lpf_tail)
+        soft = fir_sharded(bb, self.rrc_taps, ax, tail=rrc_tail)
+        new_state = (ax.last(xs[..., -1]), ax.tail(m, 128),
+                     ax.tail(analytic, g), ax.tail(analytic, 128),
+                     ax.tail(mix, 127), ax.tail(bb, 100))
+        return new_state, join_shards(soft)
 
 
 __all__ = ["RDSBank"]

@@ -1,14 +1,14 @@
-"""WBFM receiver banks on one card: C channels of the mono or stereo
-demodulator as one step over [C, T] chunks (the JAX package's
-parallel/wbfm.py, whose step is a shard_map over a (channel, time) mesh).
+"""WBFM receiver banks: C channels of the mono or stereo demodulator as one
+step over [C, T] chunks, each stream's time axis sharded over the mesh's
+``"time"`` axis (the JAX package's parallel/wbfm.py, whose step is a
+shard_map over a (channel, time) mesh).
 
-On one card the time axis has a single shard, so each halo of the JAX
-step is the carried tail of the previous chunk and its distributed
-recurrences are plain first-order recurrences.  The step is built from
-the port's ops: the FIR (ops/fir.py, float32 products), the blocked
-linear recurrence (ops/scan.py ``linrec_first_order``) and the
-vectorized pilot's ``pilot_normalize_multiply``.  The state tuples are
-the JAX classes' leaf for leaf and in the same order, so a JAX bank's
+The step splits each chunk into the time shards the mesh gives this
+process (parallel/mesh.py) and runs the halo and distributed-prefix
+helpers of parallel/time.py over them, as the JAX step does; the channel
+axis is the bank's [C] rows.  With no time axis (or ``mesh=None``) the
+stream is one shard, whose halos are the carried tails.  The state tuples
+are the JAX classes' leaf for leaf and in the same order, so a JAX bank's
 state carries across (interop.py ``bank_state_from_jax``).
 """
 
@@ -17,27 +17,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from luaradio_tpu_torch.blocks.signal.carrier import pilot_normalize_multiply
 from luaradio_tpu_torch.blocks.signal.filtering import \
     _singlepole_lowpass_coeffs
 from luaradio_tpu_torch.core.platform import resolve_device
-from luaradio_tpu_torch.ops.fir import fir_direct
-from luaradio_tpu_torch.ops.scan import linrec_first_order
+from luaradio_tpu_torch.parallel.mesh import Axis, join_shards, split_shards
+from luaradio_tpu_torch.parallel.time import (
+    delay_sharded, fir_sharded, linrec_first_order_sharded,
+    pilot_recovery_sharded)
 from luaradio_tpu_torch.utils import filter_design
 
 
-def discriminate(x: torch.Tensor, prev: torch.Tensor, gain: float):
-    """FM discriminator along the last axis with the carried last sample
-    ``prev`` [C]: arg(x[n] conj(x[n-1])) / (2 pi gain)."""
-    before = torch.cat([prev[..., None].to(x.dtype), x[..., :-1]], dim=-1)
-    t = x * before.conj()
+def time_axis(mesh) -> Axis:
+    """The mesh's ``"time"`` Axis, or a single shard where it has none."""
+    if mesh is not None and "time" in mesh.axis_names:
+        return mesh.axis("time")
+    return Axis("time", 1)
+
+
+def discriminate(x: torch.Tensor, prev: torch.Tensor, gain: float,
+                 ax: Axis) -> torch.Tensor:
+    """FM discriminator over time shards x [D, ..., L]: arg(x[n]
+    conj(x[n-1])) / (2 pi gain), the carried last sample ``prev`` [...]
+    entering shard 0 and each other shard's from its left neighbour."""
+    halo = ax.left_halo(x, 1, first=prev[..., None])
+    t = x * torch.cat([halo, x[..., :-1]], dim=-1).conj()
     return torch.atan2(t.imag, t.real) * float(
         np.float32(1.0 / (2 * np.pi * gain)))
-
-
-def delay(x: torch.Tensor, k: int, carry: torch.Tensor) -> torch.Tensor:
-    """y[n] = x[n-k] with the delay line ``carry`` [C, k]."""
-    return torch.cat([carry.to(x.dtype), x[..., :-k]], dim=-1)
 
 
 class _Deemphasis:
@@ -49,10 +54,10 @@ class _Deemphasis:
         self.b0, self.b1 = (float(np.float32(v)) for v in b)
         self.a = float(-np.float32(a[1]))
 
-    def __call__(self, f, y_prev, f_prev_last):
-        f_prev = torch.cat([f_prev_last[..., None], f[..., :-1]], dim=-1)
-        u = self.b0 * f + self.b1 * f_prev
-        return linrec_first_order(u, self.a, y_prev)
+    def __call__(self, f, y_prev, f_prev_last, ax: Axis):
+        halo = ax.left_halo(f, 1, first=f_prev_last[..., None])
+        u = self.b0 * f + self.b1 * torch.cat([halo, f[..., :-1]], dim=-1)
+        return linrec_first_order_sharded(u, self.a, y_prev, ax)
 
 
 def _taps(h: np.ndarray, dev) -> torch.Tensor:
@@ -60,13 +65,15 @@ def _taps(h: np.ndarray, dev) -> torch.Tensor:
 
 
 class WBFMMonoBank:
-    """C-channel WBFM mono demodulator on one card:
-    ``step(state, x[C, T]) -> (state, audio[C, T // decimation])``.
-    The state is (last sample [C] complex64, AF FIR tail [C, num_taps-1],
-    deemphasis y[-1] [C], its input's last value [C])."""
+    """C-channel WBFM mono demodulator over a (channel, time) mesh:
+    ``step(state, x[C, T]) -> (state, audio[C, T // decimation])``, T
+    this process's time block.  The state is (last sample [C] complex64,
+    AF FIR tail [C, num_taps-1], deemphasis y[-1] [C], its input's last
+    value [C])."""
 
-    def __init__(self, if_rate: float = 256e3, decimation: int = 8,
-                 tau: float = 75e-6, num_taps: int = 128, device=None):
+    def __init__(self, mesh, if_rate: float = 256e3, decimation: int = 8,
+                 tau: float = 75e-6, num_taps: int = 128, *, device=None):
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.if_rate = if_rate
         self.decimation = decimation
@@ -76,6 +83,7 @@ class WBFMMonoBank:
             num_taps, 15e3 / nyq).astype(np.float32), self.device)
         self._deemph = _Deemphasis(tau, if_rate)
         self.gain = 1.25   # the discriminator's modulation index (WBFM)
+        self._axis = time_axis(mesh)
 
     def init_state(self, n_channels: int):
         c, dev = n_channels, self.device
@@ -85,28 +93,34 @@ class WBFMMonoBank:
                 torch.zeros(c, device=dev))
 
     def step(self, state, x):
+        ax = self._axis
         disc_prev, fir_tail, deemph_y, f_last = state
-        m = discriminate(x, disc_prev, self.gain)
-        f, _ = fir_direct(m, self.taps, fir_tail)
-        y = self._deemph(f, deemph_y, f_last)
-        audio = y[..., ::self.decimation]
-        return (x[..., -1], m[..., -(self.num_taps - 1):], y[..., -1],
-                f[..., -1]), audio
+        xs = split_shards(x, ax.n_local)                 # [D, C, L]
+        m = discriminate(xs, disc_prev, self.gain, ax)
+        f = fir_sharded(m, self.taps, ax, tail=fir_tail)
+        y = self._deemph(f, deemph_y, f_last, ax)
+        new_state = (ax.last(xs[..., -1]),
+                     ax.tail(m, self.num_taps - 1),
+                     ax.last(y[..., -1]), ax.last(f[..., -1]))
+        return new_state, join_shards(y[..., ::self.decimation])
 
 
 class WBFMStereoBank:
-    """C-channel WBFM STEREO demodulator on one card:
+    """C-channel WBFM STEREO demodulator over a (channel, time) mesh:
     ``step(state, x[C, T]) -> (state, (left[C, T//D], right[C, T//D]))``.
 
     The pilot path is the vectorized recovery (bandpass FIR,
-    normalization, phase doubling), as in the JAX class; the reference
-    topology is wbfmstereodemodulator.lua:28-64 (discriminator -> Hilbert
-    -> {pilot bandpass -> carrier x2, delay} -> coherent mixer -> L+R /
-    L-R filters -> stereo matrix -> deemphasis).  The state's ten leaves
-    are the JAX class's."""
+    normalization, phase doubling; parallel/time.py
+    pilot_recovery_sharded), as in the JAX class: the reference's
+    sequential PLL (pll.lua:138-167) is a per-sample loop that cannot
+    time-shard.  The reference topology is wbfmstereodemodulator.lua:28-64
+    (discriminator -> Hilbert -> {pilot bandpass -> carrier x2, delay} ->
+    coherent mixer -> L+R / L-R filters -> stereo matrix -> deemphasis).
+    The state's ten leaves are the JAX class's."""
 
-    def __init__(self, if_rate: float = 256e3, decimation: int = 8,
-                 tau: float = 75e-6, device=None):
+    def __init__(self, mesh, if_rate: float = 256e3, decimation: int = 8,
+                 tau: float = 75e-6, *, device=None):
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.if_rate = if_rate
         self.decimation = decimation
@@ -121,6 +135,7 @@ class WBFMStereoBank:
         self._deemph = _Deemphasis(tau, if_rate)
         self.gain = 1.25
         self.group_delay = 64  # (129-1)/2: pilot/Hilbert path group delay
+        self._axis = time_axis(mesh)
 
     def init_state(self, n_channels: int):
         c, g, dev = n_channels, self.group_delay, self.device
@@ -139,30 +154,34 @@ class WBFMStereoBank:
     def step(self, state, x):
         (disc_prev, ht_tail, bp_tail, dly_carry, lpr_tail, lmr_tail,
          dl_y, dl_f, dr_y, dr_f) = state
-        g = self.group_delay
-        m = discriminate(x, disc_prev, self.gain)
+        ax, g = self._axis, self.group_delay
+        xs = split_shards(x, ax.n_local)
+        m = discriminate(xs, disc_prev, self.gain, ax)
         # Hilbert transform -> analytic signal: imag = 129-tap FIR, real =
         # m delayed by the filter's group delay
-        im, _ = fir_direct(m, self.ht_taps, ht_tail)
-        re = delay(m, g, ht_tail[..., -g:])
+        im = fir_sharded(m, self.ht_taps, ax, tail=ht_tail)
+        re = delay_sharded(m, g, ax, carry=ht_tail[..., -g:])
         analytic = torch.complex(re, im)
         # pilot recovery: 19 kHz bandpass -> normalize -> x2 phase
-        p, _ = fir_direct(analytic, self.bp_taps, bp_tail)
-        carrier = pilot_normalize_multiply(p, 2)
+        carrier = pilot_recovery_sharded(analytic, self.bp_taps, 2, ax,
+                                         tail=bp_tail)
         # the signal path delayed by the pilot filter's group delay
-        d = delay(analytic, g, dly_carry)
+        d = delay_sharded(analytic, g, ax, carry=dly_carry)
         mix = d * carrier.conj()
-        lpr, _ = fir_direct(d.real.contiguous(), self.af_taps, lpr_tail)
-        lmr, _ = fir_direct(mix.real.contiguous(), self.af_taps, lmr_tail)
+        d_re, mix_re = d.real.contiguous(), mix.real.contiguous()
+        lpr = fir_sharded(d_re, self.af_taps, ax, tail=lpr_tail)
+        lmr = fir_sharded(mix_re, self.af_taps, ax, tail=lmr_tail)
         l_raw, r_raw = lpr + lmr, lpr - lmr
-        yl = self._deemph(l_raw, dl_y, dl_f)
-        yr = self._deemph(r_raw, dr_y, dr_f)
+        yl = self._deemph(l_raw, dl_y, dl_f, ax)
+        yr = self._deemph(r_raw, dr_y, dr_f, ax)
         dec = self.decimation
-        new_state = (x[..., -1], m[..., -128:], analytic[..., -128:],
-                     analytic[..., -g:], d.real[..., -127:],
-                     mix.real[..., -127:], yl[..., -1], l_raw[..., -1],
-                     yr[..., -1], r_raw[..., -1])
-        return new_state, (yl[..., ::dec], yr[..., ::dec])
+        new_state = (ax.last(xs[..., -1]), ax.tail(m, 128),
+                     ax.tail(analytic, 128), ax.tail(analytic, g),
+                     ax.tail(d_re, 127), ax.tail(mix_re, 127),
+                     ax.last(yl[..., -1]), ax.last(l_raw[..., -1]),
+                     ax.last(yr[..., -1]), ax.last(r_raw[..., -1]))
+        return new_state, (join_shards(yl[..., ::dec]),
+                           join_shards(yr[..., ::dec]))
 
 
-__all__ = ["WBFMMonoBank", "WBFMStereoBank", "discriminate", "delay"]
+__all__ = ["WBFMMonoBank", "WBFMStereoBank", "discriminate", "time_axis"]

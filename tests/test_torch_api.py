@@ -6,9 +6,10 @@ tests/core/test_runtime.py:30), the runtime's span tracer and the debug
 logger.
 
 Departures the signature check allows, by name: ``device`` (the port's
-keyword-only entry-point parameter), ``mesh`` (taken, and raises
-NotImplementedError until time sharding is ported), ``channel_axis``,
-``time_axis`` and ``ingest`` (left out of the port's run/start)."""
+keyword-only entry-point parameter) and ``ingest`` (left out of the
+port's run/start/Runner).  ``mesh``, ``channel_axis`` and ``time_axis``
+bind as the JAX package's, on run, start, the Runner and the bank
+classes."""
 
 import inspect
 import types
@@ -27,7 +28,7 @@ from luaradio_tpu_torch.core.runtime import Runner  # noqa: E402
 
 #: parameters the port adds (keyword-only) or leaves out, by name
 PORT_ONLY = {"device"}
-JAX_ONLY = {"channel_axis", "time_axis", "ingest"}
+JAX_ONLY = {"ingest"}
 
 
 def _exported(mod):
@@ -84,6 +85,24 @@ def test_run_and_start_bind_as_the_jax_package(method):
     ja = [p for p in _positional(a) if p not in JAX_ONLY]
     assert _positional(b) == ja
     assert ja[:2] == ["self", "mode"] and "mesh" in ja
+    dev = inspect.signature(b).parameters["device"]
+    assert dev.kind is dev.KEYWORD_ONLY and dev.default is None
+
+
+@pytest.mark.parametrize("name", ["core.runtime.Runner",
+                                  "parallel.wbfm.WBFMMonoBank",
+                                  "parallel.wbfm.WBFMStereoBank",
+                                  "parallel.rds.RDSBank"])
+def test_runner_and_bank_classes_bind_as_the_jax_package(name):
+    """The Runner and the bank classes take the JAX package's positional
+    parameters in its order (``mesh`` first on the bank classes);
+    ``device`` is keyword-only."""
+    import importlib
+    path, cls = name.rsplit(".", 1)
+    a = getattr(importlib.import_module(f"luaradio_tpu.{path}"), cls)
+    b = getattr(importlib.import_module(f"luaradio_tpu_torch.{path}"), cls)
+    assert _positional(b) == [p for p in _positional(a)
+                              if p not in JAX_ONLY]
     dev = inspect.signature(b).parameters["device"]
     assert dev.kind is dev.KEYWORD_ONLY and dev.default is None
 
@@ -193,7 +212,9 @@ def test_eager_mode_reads_sources_in_the_pump(six_block_inputs, tmp_path):
 
 def test_run_binds_mode_positionally(tmp_path):
     """``run("eager")`` and ``run("fused")`` take the mode, as the JAX
-    package's do; an unknown mode and a mesh raise."""
+    package's do; an unknown mode raises, and so do a mesh in eager mode
+    and a mesh with neither a channel nor a time axis, with the JAX
+    package's messages."""
     def graph():
         top = tl.CompositeBlock()
         sink = tl.BenchmarkSink()
@@ -206,8 +227,11 @@ def test_run_binds_mode_positionally(tmp_path):
     top, _ = graph()
     with pytest.raises(ValueError, match="mode"):
         top.run("bogus", 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="time sharding"):
-        top.run(max_chunks=1, mesh=object(), device="cpu")
+    from luaradio_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(ValueError, match="requires mode='fused'"):
+        top.run("eager", 1, mesh=Mesh((2,), ("time",)), device="cpu")
+    with pytest.raises(ValueError, match="nothing to shard over"):
+        top.run(max_chunks=1, mesh=Mesh((2,), ("beam",)), device="cpu")
     top, sink = graph()
     top.start("eager", 1000, device="cpu")
     top.stop(timeout=30)

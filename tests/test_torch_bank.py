@@ -2,12 +2,13 @@
 inputs: ChannelizerBlock, BankSource, ``run(channels=C)`` (the one-card
 form of the JAX package's ``run(mesh=<channel mesh>, channels=C)``), and
 the bank classes WBFMMonoBank, WBFMStereoBank and RDSBank against the JAX
-classes on ("channel", "time") CPU meshes, against the port's own block
-chains run banked, and resumed from a JAX bank's state.
+classes, both on the same ("channel", "time") mesh (the port's on its
+own mesh, parallel/mesh.py), against the port's own block chains run
+banked, and resumed from a JAX bank's state.
 
 Tolerances: 2e-5 * scale where the two packages compute the same chain
-(the JAX bank on a (1, 1) mesh, the banked graphs); 2e-4 * scale where the
-JAX step shards time over 4 devices (its distributed recurrences and
+on one time shard (the (1, 1) meshes, the banked graphs); 2e-4 * scale
+where each stream's time is in 4 shards (the distributed recurrences and
 halo FIRs round differently; the JAX package's own bound,
 tests/parallel/test_stereo_bank.py:69 and test_rds_bank.py:89) and where
 a bank class is held against a block chain; the channelizer at 1e-5.
@@ -39,6 +40,7 @@ from luaradio_tpu_torch.interop import bank_state_from_jax  # noqa: E402
 from luaradio_tpu_torch.parallel import rds as port_rds  # noqa: E402
 from luaradio_tpu_torch.parallel import wbfm as port_wbfm  # noqa: E402
 from luaradio_tpu_torch.parallel.channel import ChannelBank  # noqa: E402
+from luaradio_tpu_torch.parallel.mesh import Mesh as PortMesh  # noqa: E402
 from tests.core.test_receivers import make_pocsag_iq  # noqa: E402
 from tests.parallel.test_rds_bank import make_rds_fm  # noqa: E402
 from tests.test_torch_stereo import (  # noqa: E402
@@ -420,10 +422,12 @@ def _jax_bank(kind, mesh_shape, x, chunks=N_CHUNKS, state=None):
     return state, outs
 
 
-def _port_bank(kind, x, chunks=N_CHUNKS, state=None, start=0):
+def _port_bank(kind, x, chunks=N_CHUNKS, state=None, start=0,
+               mesh_shape=(1, 1)):
     _, pcls, rate = CLASSES[kind]
-    bank = pcls(if_rate=rate, **CPU) if kind == "rds" else \
-        pcls(if_rate=rate, decimation=8, **CPU)
+    mesh = PortMesh(mesh_shape, ("channel", "time"))
+    bank = pcls(mesh, if_rate=rate, **CPU) if kind == "rds" else \
+        pcls(mesh, if_rate=rate, decimation=8, **CPU)
     state = bank.init_state(x.shape[0]) if state is None else state
     outs = []
     for k in range(start, start + chunks):
@@ -438,13 +442,13 @@ def _port_bank(kind, x, chunks=N_CHUNKS, state=None, start=0):
                                             ((2, 4), 2e-4)])
 @pytest.mark.parametrize("kind", ["mono", "stereo", "rds"])
 def test_bank_class_matches_jax(kind, mesh_shape, tol):
-    """Three chunks of streaming state against the JAX class: on a (1, 1)
-    mesh (the same chain) within 2e-5 * scale, on a (2, 4) mesh (time
-    sharded over 4 devices) within 2e-4 * scale; the carried state leaf
-    for leaf at the same bound."""
+    """Three chunks of streaming state against the JAX class, both on the
+    same mesh: on a (1, 1) mesh within 2e-5 * scale, on a (2, 4) mesh
+    (each stream's time in 4 shards) within 2e-4 * scale; the carried
+    state leaf for leaf at the same bound."""
     x = _bank_input(kind)
     jstate, jout = _jax_bank(kind, mesh_shape, x)
-    tstate, tout = _port_bank(kind, x)
+    tstate, tout = _port_bank(kind, x, mesh_shape=mesh_shape)
     for a, b in zip(tout, jout):
         _close(a, b, tol)
     assert len(tstate) == len(jstate)
