@@ -10,6 +10,15 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
 2. build: nvcc builds every kernel source and the measurement build of
    K1's halves, all at once, and cc the host wire conversions
    (native/src/format_conv.c);
+2a. roofline: the roofline probes (csrc/roofline.cu) at [8, 2^23]
+   float32: the HBM copies R1 (serial) and R2 (double-buffered ring) held
+   bit-equal to their twin, also on a ragged shape, R3 (atan2 of each
+   2^15-column tile's halves) within 4.8e-7 rad of its twin, also on
+   every pairing of signed zeros, infinities, NaN and extremes; each
+   timed beside its twin, its library call (copy_, torch.atan2) and its
+   bound; R2's ring traced (%globaltimer) to show a load in flight
+   beside each store; then benchmarks/bench_roofline.py once, whose
+   launches of R1-R3 are counted and whose object is printed;
 3. K1 / K2: each kernel at the flagship's full width (8 channels x 4 194 304
    samples, D = 8, K = 640), on a ragged chunk, on an input 8 bytes off a
    16-byte boundary and under a compact plan (K = 16 384), held against
@@ -67,7 +76,8 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     1/20 of its power), rx_raw with a tune offset (against the float64
     host translation, 1e-5) and iq_converter u8 -> f32 (equal to the host
     conversion), each through the CLI over 4 s;
-12. bench graphs: bench.py's two graph shapes on the port,
+12. bench graphs: bench.py's two graph shapes on the port (built by
+    benchmarks/bench.py),
     UniformRandomSource -> WBFMMonoDemodulator -> Downsampler(8) ->
     BenchmarkSink at 2^22-sample chunks, and the same chain fed by a
     4 Mi-sample repeating u8 IQFileSource, streamed and device-resident,
@@ -114,8 +124,8 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     run(channels=8): each row decodes what it carries, the noise rows
     nothing;
 19. blocks: every row of the reference block benchmark (bench_blocks.py
-    :150-310, a copy of its list) built from the port and timed through
-    the Runner at its chunk (2^22, its overrides), the two IIR rows and
+    :150-310, the port's list in benchmarks/bench_blocks.py) timed through
+    the Runner by that module at its chunk (2^22, its overrides), the two IIR rows and
     the five back-to-back FFT FIRs also with optimize=False; the noise-fed
     PLL row must launch K3 and the acquiring row the overlap scan, and
     each block new in the slice (IIR of order 2 and 4, the FFT FIR's
@@ -183,14 +193,25 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     (luaradio_tpu_torch/utils/embed.py), which runs a graph on the card
     through the C API (errors, start, running, wait, stopped, stop), its
     output equal to the Python run's;
-31. the kernels line and the final status line.
+31. entries: the port's measurement entry points (benchmarks/): bench
+    (its four rows at 3 s each, every row run, K1 launched), bench_scaling
+    up to 8 shards (each mesh's bank audio within 1e-6 of one shard's),
+    bench_realtime paced for 8 s (ok), the bench_multihost scenarios the
+    multihost phase does not run (resident ring, bit bank, RDS bank,
+    overhead; each against its serial run), entry() against the same
+    step on the CPU and dryrun_multichip(8), and the examples
+    iqfile_converter, iqfile_wbfm_stereo, channel_bank_pod and
+    wideband_channelizer_bank against the same modules on the CPU;
+32. the kernels line (K1, K2, K3, the scan, R1, R2, R3) and the final
+    status line.
 
 Launch counts are zeroed just before the flagship, the K2 graph run, the
 stereo CLI run, the overlap path run, the rx_am --synchronous run, the
 rx_rds run, the bank-mono K2 run, the two bank-stereo runs, each block
 row, the FM round trip under the K2 rule, the newton call and each paced
-live example, and the time phase (where each must stay at 0), and
-read just after: each kernel must have run on its path.  Any failure
+live example, the time phase (where each must stay at 0), the
+bench_roofline run (R1-R3) and the port's bench run (K1), and read just
+after: each kernel must have run on its path.  Any failure
 raises (non-zero exit); a hang ends the run with a traceback after 480 s.
 ``--profile PATH`` also writes a torch.profiler table of one mono graph
 run to PATH, of the stereo run to PATH.stereo.txt, of the rx_am
@@ -229,9 +250,8 @@ from luaradio_tpu_torch import (VARICODE, BankSource, BenchmarkSink,
                                 MultiplyConjugateBlock, Output,
                                 PilotRecoveryBlock, POCSAGReceiver,
                                 RootRaisedCosineFilterBlock, RtlSdrSource,
-                                SinkBlock, TunerBlock, UniformRandomSource,
-                                WAVFileSink, WBFMMonoDemodulator,
-                                WBFMStereoDemodulator)
+                                SinkBlock, TunerBlock, WAVFileSink,
+                                WBFMMonoDemodulator, WBFMStereoDemodulator)
 import luaradio_tpu_torch as lr
 from luaradio_tpu_torch import cli
 from luaradio_tpu_torch.blocks.protocol import ax25 as ax25_proto
@@ -239,10 +259,13 @@ from luaradio_tpu_torch.blocks.sinks import audio
 from luaradio_tpu_torch.blocks.protocol import ert as ert_proto
 from luaradio_tpu_torch.blocks.protocol import pocsag as pocsag_proto
 from luaradio_tpu_torch.blocks.protocol import rds as rds_proto
+from luaradio_tpu_torch.benchmarks import bench as pbench
+from luaradio_tpu_torch.benchmarks import bench_blocks as pblocks
+from luaradio_tpu_torch.benchmarks import bench_roofline as proofline
 from luaradio_tpu_torch.blocks.signal import carrier
-from luaradio_tpu_torch.core.composite import PortRef
 from luaradio_tpu_torch.core.runtime import Runner
-from luaradio_tpu_torch.ops import cudabuild, pll, pll_overlap, wbfm
+from luaradio_tpu_torch.ops import (cudabuild, pll, pll_overlap, roofline,
+                                   wbfm)
 from luaradio_tpu_torch.ops.complexutil import (complex_to_wire,
                                                 wire_to_complex)
 from luaradio_tpu_torch.ops.fir import _conv_real
@@ -308,20 +331,12 @@ ST_SCAN_CHUNK = 65536
 ST_STATIONS = (2, 9, 17, 25, 33, 41, 49, 57)
 BATCH_ROWS = (1, 8, 64, 132, 264)
 CLASS_CHUNK, CLASS_CHUNKS = 1 << 17, 4
-#: the blocks phase: bench_blocks.py's chunk and its overrides (the rows
-#: whose chunk at 2^22 is over in microseconds), its file sources'
-#: samples, the seconds each row is timed; the chunk and chunks over
-#: which each new block is held against the CPU (the FM modulator at its
-#: CPU test's 8192: a float32 cumsum's rounding grows with the chunk);
-#: the newton phase's samples
+#: the blocks phase: bench_blocks.py's chunk (benchmarks/bench_blocks.py
+#: holds its overrides), its file sources' samples, the seconds each row
+#: is timed; the chunk and chunks over which each new block is held
+#: against the CPU (the FM modulator at its CPU test's 8192: a float32
+#: cumsum's rounding grows with the chunk); the newton phase's samples
 BLOCK_CHUNK, BLOCK_FILE, ROW_S = 1 << 22, 4 << 20, 0.3
-BLOCK_OVERRIDES = {
-    "Null Source (Complex)": 1 << 24, "Null Source (Real)": 1 << 24,
-    "Downsampler (M = 5), Complex": 5 << 22,
-    "Downsampler (M = 5), Real": 5 << 22,
-    "Zero Crossing Clock Recovery": 1 << 23,
-    "Upsampler (L = 3), Complex": 1 << 23, "Upsampler (L = 3), Real": 1 << 23,
-}
 HOLD_CHUNK, HOLD_CHUNKS = 1 << 18, 2
 NEWTON_N = 1 << 16
 #: the live phase: the mono and AM captures' seconds (the RDS capture is
@@ -1202,11 +1217,15 @@ def phase_pll_time(dev, gen, chunk):
                      "graph_floor_ratio": dev_ms / floor_ms,
                      "chain_ns_per_step": ns_step}
         else:
+            t0 = time.monotonic()
+            pll.pll_phase_reference(xs, state, *params, 2.0)
+            plain_ms = (time.monotonic() - t0) * 1e3
+            plain = f"; twin {plain_ms:.1f} ms (host clock, one run)"
             entry[f"at_{n}"] = {"ms": ms, "graph_ms": dev_ms,
                                 "chain_floor_ms": floor_ms,
                                 "floor_ratio": ms / floor_ms,
                                 "graph_floor_ratio": dev_ms / floor_ms,
-                                "bound_ms": bound_ms}
+                                "bound_ms": bound_ms, "plain_ms": plain_ms}
         log("K3", f"[{n} samples] {ms:.4f} ms per launch (median of "
                   f"{REPS if n == chunk else 5}), device {dev_ms:.4f} ms "
                   f"(CUDA-graph replay), {n / ms / 1e3:.2f} M "
@@ -1215,6 +1234,15 @@ def phase_pll_time(dev, gen, chunk):
                   f"({ns_step:.3f} ns a step x {n}); {ms / floor_ms:.3f}x "
                   f"the floor a launch, {dev_ms / floor_ms:.3f}x device"
                   f"{plain}")
+    # a fractional multiplier (no receiver uses one): the phi_m walk
+    ms = median_ms(lambda: pll.pll_phase(x, state, *params, 2.5))
+    t0 = time.monotonic()
+    pll.pll_phase_reference(x, state, *params, 2.5)
+    plain_ms = (time.monotonic() - t0) * 1e3
+    entry["mult_2_5"] = {"ms": ms, "plain_ms": plain_ms}
+    log("K3", f"[{chunk} samples, multiplier 2.5] {ms:.4f} ms per launch "
+              f"(median of {REPS}); twin {plain_ms:.1f} ms (host clock, "
+              f"one run)")
     return entry
 
 
@@ -1245,6 +1273,9 @@ def phase_overlap_hold(dev, gen, chunk):
         x, state, *params, 2, lseg, warm), reps=5)
     kstate = torch.tensor(state, device=dev)
     k3_ms = median_ms(lambda: pll.pll_phase(x, kstate, *params, 2.0), reps=5)
+    t0 = time.monotonic()
+    pll.pll_phase_reference(x, kstate, *params, 2.0)
+    k3_plain_ms = (time.monotonic() - t0) * 1e3
     s = n // lseg
     steps = warm + lseg
     xb = x[None]                             # the scan's [rows, N] form
@@ -1263,7 +1294,8 @@ def phase_overlap_hold(dev, gen, chunk):
     log("overlap", f"2^16 chunk: kernel {ms:.3f} ms (median of 5, the torch "
                    f"set-up and chaining included), twin {plain_ms:.1f} ms "
                    f"(host clock, one run), K3 on the same chunk "
-                   f"{k3_ms:.3f} ms (median of 5); the scan's launch alone "
+                   f"{k3_ms:.3f} ms (median of 5; its twin "
+                   f"{k3_plain_ms:.1f} ms, one run); the scan's launch alone "
                    f"{scan_ms:.3f} ms, {steps} serial steps a segment, "
                    f"{scan_ns:.1f} ns a step")
     log("overlap", f"chain probe (the step's dependent chain through the "
@@ -1277,7 +1309,8 @@ def phase_overlap_hold(dev, gen, chunk):
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "bound_binds": False,
-            "k3_same_chunk_ms": k3_ms, "scan_ms": scan_ms,
+            "k3_same_chunk_ms": k3_ms, "k3_same_chunk_plain_ms": k3_plain_ms,
+            "scan_ms": scan_ms,
             "serial_steps": steps, "ns_per_step": scan_ns,
             "chain_floor_ns_per_step": probe_ns,
             "floor_ratio": scan_ns / probe_ns}
@@ -1573,20 +1606,14 @@ class _Collect(SinkBlock):
         self.got.append(list(x) if isinstance(x, list) else np.array(x))
 
 
-def bench_graph(source, sink):
-    top = CompositeBlock()
-    top.connect(source, WBFMMonoDemodulator(tau=75e-6), DownsamplerBlock(8),
-                sink)
-    return top
-
-
-def bench_run(make_source, dev, secs=BENCH_S, mesh=None):
+def bench_run(make_top, dev, secs=BENCH_S, mesh=None):
     """One of bench.py's graph rows on the card (on ``mesh``, if given):
-    warm up, time 16 chunks, then run for about ``secs``.  Returns
-    (complex samples/s, chunks, the runner's host-to-device copies)."""
+    ``make_top(sink)`` builds it (benchmarks/bench.py's graphs); warm
+    up, time 16 chunks, then run for about ``secs``.  Returns (complex
+    samples/s, chunks, the runner's host-to-device copies)."""
     def make():
-        return Runner(bench_graph(make_source(), BenchmarkSink()),
-                      chunk_size=BENCH_CHUNK, mesh=mesh, device=dev)
+        return Runner(make_top(BenchmarkSink()), chunk_size=BENCH_CHUNK,
+                      mesh=mesh, device=dev)
     make().run(max_chunks=2)                                    # warm-up
     t0 = time.monotonic()
     make().run(max_chunks=16)
@@ -1599,24 +1626,21 @@ def bench_run(make_source, dev, secs=BENCH_S, mesh=None):
 
 
 def phase_bench_graphs(tmp, dev, smi, profile):
-    """The shapes of bench.py's two graph rows on the port:
-    UniformRandomSource(ComplexFloat32, 256e3) -> WBFMMonoDemodulator ->
-    DownsamplerBlock(8) at 2^22-sample chunks, and the same chain fed by a
-    4 Mi-sample repeating u8 IQFileSource, streamed and device-resident.
-    The resident run must make no host-to-device copy, and over the first
-    chunks its audio must equal the streamed run's exactly."""
-    rng = np.random.default_rng(7)
-    path = os.path.join(tmp, "bench.u8.iq")
-    rng.integers(0, 256, 2 * BENCH_FILE).astype(np.uint8).tofile(path)
-
-    def rand():
-        return UniformRandomSource(ComplexFloat32, 256e3, seed=1)
+    """The shapes of bench.py's two graph rows on the port, built by
+    benchmarks/bench.py: UniformRandomSource(ComplexFloat32, 256e3) ->
+    WBFMMonoDemodulator -> DownsamplerBlock(8) at 2^22-sample chunks, and
+    the same chain fed by a 4 Mi-sample repeating u8 IQFileSource,
+    streamed and device-resident.  The resident run must make no
+    host-to-device copy, and over the first chunks its audio must equal
+    the streamed run's exactly."""
+    path = pbench.write_u8_file(os.path.join(tmp, "bench.u8.iq"),
+                                BENCH_FILE)
 
     def ring(resident):
-        return lambda: IQFileSource(path, "u8", 256e3, repeat_on_eof=True,
-                                    resident=resident)
+        return lambda sink: pbench.file_graph(path, sink, resident)
     rows = {}
-    for name, make in (("random", rand), ("file streamed", ring(False)),
+    for name, make in (("random", pbench.runner_graph),
+                       ("file streamed", ring(False)),
                        ("file resident", ring(True))):
         sps, k, copies = bench_run(make, dev)
         want = 0 if name != "file streamed" else k
@@ -1629,14 +1653,14 @@ def phase_bench_graphs(tmp, dev, smi, profile):
                      f"copies; {smi}")
         if profile:
             profile_run(lambda: Runner(
-                bench_graph(make(), BenchmarkSink()), chunk_size=BENCH_CHUNK,
+                make(BenchmarkSink()), chunk_size=BENCH_CHUNK,
                 device=dev).run(max_chunks=50),
                 f"{profile}.bench_{name.replace(' ', '_')}.txt",
                 f"bench {name}, 50 chunks")
     audio = {}
     for resident in (False, True):
         sink = _Collect()
-        Runner(bench_graph(ring(resident)(), sink), chunk_size=BENCH_CHUNK,
+        Runner(ring(resident)(sink), chunk_size=BENCH_CHUNK,
                device=dev).run(max_chunks=3)
         audio[resident] = np.concatenate(sink.got)
     if audio[True].shape != (3 * BENCH_CHUNK // 8,) \
@@ -2716,231 +2740,18 @@ def phase_bank_host(tmp, dev):
 # -- this slice: the rest of the signal blocks, file I/O, eager mode -------
 
 def block_rows(tmp):
-    """The rows of bench_blocks.py:150-310 (the reference's published block
-    benchmark, BASELINE.md's table), built from the port: a copy, since
-    that script imports the JAX package.  Each row is (name, the
-    reference's rate on an i5-4570T in M samples/s or None, build() ->
-    (top, block under test), optimize); the two IIR rows and the five
-    back-to-back FFT FIRs also run with optimize=False (the optimizer
-    folds the decaying IIR into an FIR and the five FIRs into one)."""
-    rng = np.random.default_rng(12345)
-    c64, f32, rate = lr.ComplexFloat32, lr.Float32, 1e6
-
-    def rand_c():
-        return lr.UniformRandomSource(c64, rate)
-
-    def rand_f():
-        return lr.UniformRandomSource(f32, rate)
-
-    def simple(mk_src, mk_blk):
-        def build():
-            top, blk = CompositeBlock(), mk_blk()
-            top.connect(mk_src(), blk, BenchmarkSink(report_period=1e9))
-            return top, blk
-        return build
-
-    def two_in(mk_src, mk_blk, names=("in1", "in2")):
-        def build():
-            top, blk = CompositeBlock(), mk_blk()
-            top.connect(mk_src(), "out", blk, names[0])
-            top.connect(mk_src(), "out", blk, names[1])
-            top.connect(blk, BenchmarkSink(report_period=1e9))
-            return top, blk
-        return build
-
-    def pll_acquire():
-        top, blk = CompositeBlock(), lr.PLLBlock(1e3, 200e3, 220e3)
-        add, scale = lr.AddBlock(), lr.MultiplyConstantBlock(0.8)
-        top.connect(lr.SignalSource("exponential", 210e3, rate), "out", add,
-                    "in1")
-        top.connect(rand_c(), scale)
-        top.connect(scale, "out", add, "in2")
-        top.connect(add, blk, BenchmarkSink(report_period=1e9))
-        return top, blk
-
-    taps16 = rng.standard_normal(16).astype(np.float32)
-    taps128 = rng.standard_normal(128).astype(np.float32)
-    taps256 = rng.standard_normal(256).astype(np.float32)
-    taps16c = (rng.standard_normal(16) + 1j * rng.standard_normal(16)
-               ).astype(np.complex64)
-    taps128c = (rng.standard_normal(128) + 1j * rng.standard_normal(128)
-                ).astype(np.complex64)
-
-    def five_fir():
-        top = CompositeBlock()
-        blocks = [lr.FIRFilterBlock(taps256, use_fft=True) for _ in range(5)]
-        top.connect(rand_c(), *blocks, BenchmarkSink(report_period=1e9))
-        return top, blocks[-1]
-
-    def nop(mk_src):
-        return simple(mk_src, lr.NopBlock)
-
-    iir = (lambda: lr.IIRFilterBlock(np.float32([0.2] * 5),
-                                     np.float32([1.0, 0.1, 0.05])))
-    five = "Five Back to Back FIR Filters (FFT, 256 Real taps, Complex input)"
-    rows = [
-        (five, 42.6, five_fir, True),
-        (five + ", optimize off", 42.6, five_fir, False),
-        ("Null Source (Complex)", 1357.3, nop(lambda: lr.NullSource(c64,
-                                                                    rate)),
-         True),
-        ("Null Source (Real)", 2941.9, nop(lambda: lr.NullSource(f32, rate)),
-         True),
-        ("Uniform Random Source (Complex)", 93.8, nop(rand_c), True),
-        ("Uniform Random Source (Real)", 176.2, nop(rand_f), True),
-        ("Signal Source (Complex Exponential)", 43.5, nop(
-            lambda: lr.SignalSource("exponential", 200e3, rate)), True),
-        ("Signal Source (Cosine)", 80.6, nop(
-            lambda: lr.SignalSource("cosine", 200e3, rate)), True),
-        ("Signal Source (Square)", 97.1, nop(
-            lambda: lr.SignalSource("square", 200e3, rate)), True),
-        ("FIR Filter (16 Real taps, Complex input)", 67.5, simple(
-            rand_c, lambda: lr.FIRFilterBlock(taps16, use_fft=False)), True),
-        ("FIR Filter (16 Real taps, Real input)", 84.7, simple(
-            rand_f, lambda: lr.FIRFilterBlock(taps16, use_fft=False)), True),
-        ("FIR Filter (16 Complex taps, Complex input)", 58.9, simple(
-            rand_c, lambda: lr.FIRFilterBlock(taps16c, use_fft=False)),
-         True),
-        ("FIR Filter (FFT, 128 Real taps, Complex input)", 133.9, simple(
-            rand_c, lambda: lr.FIRFilterBlock(taps128, use_fft=True)), True),
-        ("FIR Filter (FFT, 128 Real taps, Real input)", 141.5, simple(
-            rand_f, lambda: lr.FIRFilterBlock(taps128, use_fft=True)), True),
-        ("FIR Filter (FFT, 128 Complex taps, Complex input)", 132.7, simple(
-            rand_c, lambda: lr.FIRFilterBlock(taps128c, use_fft=True)),
-         True),
-        ("IIR Filter (5 ff 3 fb Real taps, Complex input)", 52.2,
-         simple(rand_c, iir), True),
-        ("IIR Filter (5 ff 3 fb Real taps, Complex input), optimize off",
-         52.2, simple(rand_c, iir), False),
-        ("IIR Filter (5 ff 3 fb Real taps, Real input)", 98.9,
-         simple(rand_f, iir), True),
-        ("IIR Filter (5 ff 3 fb Real taps, Real input), optimize off", 98.9,
-         simple(rand_f, iir), False),
-        ("FM Deemphasis Filter", 139.9, simple(
-            rand_f, lambda: lr.FMDeemphasisFilterBlock(75e-6)), True),
-        ("Downsampler (M = 5), Complex", 144.1, simple(
-            rand_c, lambda: DownsamplerBlock(5)), True),
-        ("Downsampler (M = 5), Real", 253.1, simple(
-            rand_f, lambda: DownsamplerBlock(5)), True),
-        ("Upsampler (L = 3), Complex", 702.6, simple(
-            rand_c, lambda: lr.UpsamplerBlock(3)), True),
-        ("Upsampler (L = 3), Real", 1259.6, simple(
-            rand_f, lambda: lr.UpsamplerBlock(3)), True),
-        ("Frequency Translator", 396.7, simple(
-            rand_c, lambda: lr.FrequencyTranslatorBlock(200e3)), True),
-        ("Hilbert Transform (65 taps)", 67.7, simple(
-            rand_f, lambda: HilbertTransformBlock(65)), True),
-        ("Hilbert Transform (129 taps)", 47.5, simple(
-            rand_f, lambda: HilbertTransformBlock(129)), True),
-        ("Frequency Discriminator", 111.6, simple(
-            rand_c, lambda: FrequencyDiscriminatorBlock(1.25)), True),
-        ("PLL", 5.5, simple(rand_c, lambda: lr.PLLBlock(1e3, 200e3, 220e3)),
-         True),
-        ("PLL (locked, tone input)", 5.5, simple(
-            lambda: lr.SignalSource("exponential", 210e3, rate),
-            lambda: lr.PLLBlock(1e3, 200e3, 220e3)), True),
-        ("PLL (acquiring, +3 dB tone in noise)", 5.5, pll_acquire, True),
-        ("Zero Crossing Clock Recovery", 72.0, simple(
-            rand_f, lambda: lr.ZeroCrossingClockRecoveryBlock(1200)), True),
-        ("Binary Phase Corrector", 54.8, simple(
-            rand_c, lambda: lr.BinaryPhaseCorrectorBlock(3000)), True),
-        ("Add (Complex)", 226.4, two_in(rand_c, lr.AddBlock), True),
-        ("Subtract (Complex)", 224.0, two_in(rand_c, lr.SubtractBlock),
-         True),
-        ("Multiply (Complex)", 280.6, two_in(rand_c, lr.MultiplyBlock), True),
-        ("Multiply (Real)", 608.6, two_in(rand_f, lr.MultiplyBlock), True),
-        ("Multiply Conjugate", 291.6, two_in(rand_c, MultiplyConjugateBlock),
-         True),
-        ("Multiply Constant (Real constant, Complex input)", 308.6, simple(
-            rand_c, lambda: lr.MultiplyConstantBlock(2.5)), True),
-        ("Multiply Constant (Complex constant, Complex input)", 254.5,
-         simple(rand_c, lambda: lr.MultiplyConstantBlock(2.5 + 1j)), True),
-        ("Multiply Constant (Real constant, Real input)", 570.7, simple(
-            rand_f, lambda: lr.MultiplyConstantBlock(2.5)), True),
-        ("Absolute Value", 647.5, simple(rand_f, lr.AbsoluteValueBlock),
-         True),
-        ("Complex Conjugate", 383.4, simple(rand_c, lr.ComplexConjugateBlock),
-         True),
-        ("Complex Magnitude", 297.4, simple(rand_c, lr.ComplexMagnitudeBlock),
-         True),
-        ("Complex Phase", 130.0, simple(rand_c, lr.ComplexPhaseBlock), True),
-        ("Delay (N = 3000, Complex input)", 473.4, simple(
-            rand_c, lambda: DelayBlock(3000)), True),
-        ("Bit Slicer", 92.6, simple(rand_f, lr.SlicerBlock), True),
-        ("Differential Decoder", 157.3, simple(
-            lambda: lr.UniformRandomSource(lr.Bit, rate),
-            lr.DifferentialDecoderBlock), True),
-        ("Complex to Real", 554.8, simple(rand_c, lr.ComplexToRealBlock),
-         True),
-        ("Complex to Imaginary", 555.6, simple(rand_c, lr.ComplexToImagBlock),
-         True),
-        ("Float to Complex", 397.7, two_in(rand_f, lr.FloatToComplexBlock,
-                                           ("real", "imag")), True),
-    ]
-    n = BLOCK_FILE
-    paths = {k: os.path.join(tmp, f"blocks.{k}") for k in ("iq", "f32",
-                                                            "u8")}
-    (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
-        np.complex64).tofile(paths["iq"])
-    rng.standard_normal(n).astype(np.float32).tofile(paths["f32"])
-    rng.integers(0, 256, 2 * n).astype(np.uint8).tofile(paths["u8"])
-    files = [
-        ("IQ File Source (f32le)", 280.1, lambda: IQFileSource(
-            paths["iq"], "f32le", rate, repeat_on_eof=True, resident=False)),
-        ("Real File Source (f32le)", 506.4, lambda: lr.RealFileSource(
-            paths["f32"], "f32le", rate, repeat_on_eof=True,
-            resident=False)),
-        ("Raw File Source (float)", 1312.4, lambda: lr.RawFileSource(
-            paths["f32"], f32, rate, repeat_on_eof=True, resident=False)),
-        ("IQ File Source (u8, device-side conversion)", None,
-         lambda: IQFileSource(paths["u8"], "u8", rate, repeat_on_eof=True,
-                              resident=False)),
-        ("IQ File Source (f32le, HBM-resident loop)", None,
-         lambda: IQFileSource(paths["iq"], "f32le", rate,
-                              repeat_on_eof=True)),
-    ]
-    for i, (name, base, src) in enumerate(files):
-        rows.insert(2 + i, (name, base, nop(src), True))
-    return rows, paths
-
-
-def bench_row(build, chunk, optimize, dev):
-    """One row as bench_blocks.py's bench_one times it: source -> block ->
-    BenchmarkSink through the Runner, one warm-up chunk, then trials of k
-    chunks (k doubled while a trial takes under 50 ms) for about ROW_S
-    seconds, each ended by a synchronize; the best trial's samples/s at
-    the block's output (at the sink's input where the optimizer fused the
-    block away).  Returns (samples/s, chunks, the output's type name)."""
-    top, blk = build()
-    runner = Runner(top, chunk_size=chunk, optimize=optimize, device=dev)
-    g = runner.graph
-    if id(blk) in g.out_chunk:
-        n_out, typ = g.out_chunk[id(blk)], blk.get_output_type()
-    else:
-        sink = next(b for b in g.order if isinstance(b, BenchmarkSink))
-        src = g.edges[PortRef(sink, 0)]
-        n_out = g.out_chunk[id(src.block)]
-        typ = src.block.get_output_type(src.index)
-    try:
-        if not runner._pump_once():
-            raise AssertionError("blocks: EOF in the warm-up")
-        torch.cuda.synchronize()
-        best, timed, k, chunks = 0.0, 0.0, 1, 1
-        while timed < ROW_S:
-            t0 = time.monotonic()
-            for _ in range(k):
-                if not runner._pump_once():
-                    raise AssertionError("blocks: EOF in a trial")
-            torch.cuda.synchronize()
-            dt = time.monotonic() - t0
-            timed += dt
-            chunks += k
-            best = max(best, k * n_out / dt)
-            if dt < 0.05:
-                k *= 2
-    finally:
-        runner._cleanup_once()
-    return best, chunks, typ.name
+    """The rows of the reference block benchmark from
+    benchmarks/bench_blocks.py (its fixtures written to ``tmp``), each
+    (name, the reference's rate on an i5-4570T in M samples/s or None,
+    build() -> (top, block under test), optimize); the rows of
+    ``OPTIMIZE_OFF`` (the two IIR rows and the five back-to-back FFT
+    FIRs, which the optimizer folds) also run with optimize=False."""
+    rows = []
+    for name, base, build in pblocks.benchmarks(tmp, BLOCK_FILE):
+        rows.append((name, base, build, True))
+        if name in pblocks.OPTIMIZE_OFF:
+            rows.append((name + ", optimize off", base, build, False))
+    return rows, pblocks.file_paths(tmp)
 
 
 def hold_graph(make, inputs, types_, device, chunk, optimize=True,
@@ -3004,7 +2815,8 @@ def phase_blocks(tmp, dev, smi, ns_step):
     paths_launch = {}
     pll_calls = []
     for name, base, build, optimize in rows:
-        chunk = BLOCK_OVERRIDES.get(name, BLOCK_CHUNK)
+        chunk = pblocks.CHUNK_OVERRIDES.get(name.removesuffix(
+            ", optimize off"), BLOCK_CHUNK)
         k3_calls, scan_calls, restores = [], [], []
         if name.startswith("PLL"):
             restores = [_record(pll, "_launch", k3_calls, keep=1),
@@ -3012,7 +2824,8 @@ def phase_blocks(tmp, dev, smi, ns_step):
         try:
             pll.pll_phase.launches = 0
             pll_overlap.pll_overlap_discard.launches = 0
-            sps, chunks, typ = bench_row(build, chunk, optimize, dev)
+            sps, chunks, typ = pblocks.bench_one(build, chunk, dev, ROW_S,
+                                                 optimize)
             launches = {"K3": pll.pll_phase.launches,
                         "scan": pll_overlap.pll_overlap_discard.launches}
         finally:
@@ -4181,14 +3994,12 @@ def phase_time(tmp, dev, smi, paths, rds_path, rds_sent, rds_packets):
                     f"{len(b) * 25 / dt_m / 1e6:.2f} M complex samples/s end "
                     f"to end (serial {len(a) * 25 / dt_s / 1e6:.2f} M)")
 
-    def rand():
-        return UniformRandomSource(ComplexFloat32, 256e3, seed=1)
     rows = {}
     for label, mesh in (("serial", None), (f"D={BENCH_D}",
                                            time_mesh(BENCH_D))):
-        sps, k, _ = bench_run(rand, dev, mesh=mesh)
+        sps, k, _ = bench_run(pbench.runner_graph, dev, mesh=mesh)
         wall, busy = busy_share(lambda: Runner(
-            bench_graph(rand(), BenchmarkSink()), chunk_size=BENCH_CHUNK,
+            pbench.runner_graph(BenchmarkSink()), chunk_size=BENCH_CHUNK,
             mesh=mesh, device=dev).run(max_chunks=16))
         rows[label] = {"sps": sps, "chunks": k, "busy": busy}
         log("time", f"bench random graph, {label}: {sps / 1e6:.1f} M "
@@ -4197,15 +4008,11 @@ def phase_time(tmp, dev, smi, paths, rds_path, rds_sent, rds_packets):
                     f"chunks ({wall:.3f} s, torch.profiler); {smi}")
     out["bench_random"] = rows
 
-    rng = np.random.default_rng(7)
-    ring = os.path.join(tmp, "bench.u8.iq")
-    rng.integers(0, 256, 2 * BENCH_FILE).astype(np.uint8).tofile(ring)
+    ring = pbench.write_u8_file(os.path.join(tmp, "bench.u8.iq"), BENCH_FILE)
     res = {}
     for label, mesh in (("serial", None), ("mesh", time_mesh(BENCH_D))):
         sink = _Collect()
-        r = Runner(bench_graph(IQFileSource(ring, "u8", 256e3,
-                                            repeat_on_eof=True,
-                                            resident=True), sink),
+        r = Runner(pbench.file_graph(ring, sink, True),
                    chunk_size=BENCH_CHUNK, mesh=mesh, device=dev)
         r.run(max_chunks=3)
         if not r._resident_srcs or r.h2d_copies:
@@ -4448,6 +4255,336 @@ def phase_embed(tmp, dev):
     return {"build_s": built, "lifecycle_s": wall}
 
 
+# -- this slice: the roofline probes and the measurement entry points ------
+
+#: the roofline phase: R1-R3 at bench_roofline.py's [8, 2^23] float32, R3
+#: held within 2 ulp at pi of its twin, R3's operations an output for its
+#: operation bound (atan2f as ~30), the seconds of bench_roofline's
+#: resident row; the entries phase: bench.py's budget (four rows of
+#: BENCH_S), the paced realtime run's seconds, the bench_multihost
+#: scenarios the multihost phase does not run
+ROOF_C, ROOF_W = 8, 1 << 23
+ATAN2_TOL, ATAN2_OPS = 4.8e-7, 30
+ROOF_RESIDENT_S = 1.5
+ENTRY_BUDGET_S, REALTIME_S = 4 * BENCH_S, 8.0
+MH_SCENARIOS = ("wbfm_resident", "channel_bank", "rds_bank", "overhead")
+
+
+def roofline_counts() -> dict:
+    return {"R1": roofline.hbm_copy_serial.launches,
+            "R2": roofline.hbm_copy_double_buffered.launches,
+            "R3": roofline.atan2_halves.launches}
+
+
+def hold_copy(name, fn, x):
+    """R1 or R2 bit-equal to its twin (and to its input)."""
+    got, exp = fn(x), roofline.hbm_copy_reference(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, exp) and torch.equal(got, x)):
+        raise AssertionError(f"{name} {tuple(x.shape)}: the copy differs "
+                             f"from its twin")
+    log("roofline", f"{name} {tuple(x.shape)}: bit-equal to its twin")
+
+
+def atan2_edges(dev, h):
+    """[2, ...] float32 whose tiles of 2h columns pair every (y, x) of
+    signed zeros, infinities, NaN, subnormals, extremes and plain values
+    (padded with 1.0)."""
+    v = np.float32([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
+                    1e-38, 3e38, -3e38, 1.0, -1.0, 1.5, -2.5, 1e-30, 7.0])
+    y, x = (a.ravel() for a in np.meshgrid(v, v, indexing="ij"))
+    per = 2 * h
+    n = -(-len(y) // per) * per
+    y = np.concatenate([y, np.ones(n - len(y), np.float32)])
+    x = np.concatenate([x, np.ones(n - len(x), np.float32)])
+    w = np.stack([y.reshape(2, -1, h), x.reshape(2, -1, h)], axis=2)
+    return torch.from_numpy(w.reshape(2, -1).copy()).to(dev)
+
+
+def atan2_err(got, exp):
+    """Largest |kernel - twin| in rad where both are numbers; raises on a
+    NaN in one and not the other or a zero of the other sign."""
+    g, e = got.double().cpu(), exp.double().cpu()
+    if not torch.equal(g.isnan(), e.isnan()):
+        raise AssertionError("atan2_halves: NaN where the twin has none")
+    zero = e == 0
+    if not torch.equal(torch.signbit(g[zero]), torch.signbit(e[zero])) or \
+            (g[zero] != 0).any():
+        raise AssertionError("atan2_halves: a signed zero differs")
+    ok = ~e.isnan()
+    return float((g[ok] - e[ok]).abs().max())
+
+
+def roofline_entry(name, fn, twin, library, x, nbytes, ops, source_line):
+    """A kernels-line entry of R1, R2 or R3: ms, twin and library ms
+    (CUDA events, median of REPS), bound of ``nbytes`` and ``ops``."""
+    ms = median_ms(lambda: fn(x))
+    plain_ms = median_ms(lambda: twin(x))
+    library_ms = median_ms(library)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    e = {"name": name, "route": "cuda",
+         "source": "luaradio_tpu_torch/csrc/roofline.cu",
+         "replaces": f"bench_roofline.py:{source_line}", "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "library_ms": library_ms}
+    log("roofline", f"{name} {tuple(x.shape)}: {ms:.4f} ms (median of "
+                    f"{REPS}), twin {plain_ms:.4f} ms, library "
+                    f"{library_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
+                    f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; H100 SXM data "
+                    f"sheet); {nbytes / ms / 1e6:.1f} GB/s")
+    return e
+
+
+def phase_roofline(dev, gen, smi):
+    """R1, R2 and R3 (csrc/roofline.cu) at [8, 2^23]: the copies bit-equal
+    to their twin (and on a ragged shape whose bytes are no multiple of
+    16), R3 within ATAN2_TOL of its twin (and on every pairing of signed
+    zeros, infinities, NaN and extremes, through its vector and scalar
+    paths), each timed beside its twin, its library call and its bound;
+    R2's ring traced to show its loads in flight beside its stores.  Then
+    benchmarks/bench_roofline.py once, its launches of R1-R3 counted
+    (zeroed just before), its object printed.  Returns the three
+    kernels-line entries."""
+    x = torch.randn((ROOF_C, ROOF_W), generator=gen, device=dev)
+    ragged = torch.randn((3, 2 * 5003), generator=gen, device=dev)
+    for name, fn in (("hbm_copy serial (R1)", roofline.hbm_copy_serial),
+                     ("hbm_copy double-buffered (R2)",
+                      roofline.hbm_copy_double_buffered)):
+        hold_copy(name, fn, x)
+        hold_copy(name, fn, ragged)
+    err = atan2_err(roofline.atan2_halves(x),
+                    roofline.atan2_halves_reference(x))
+    for tile in (8, 6):                    # float4 and scalar paths
+        e = atan2_edges(dev, tile // 2)
+        err = max(err, atan2_err(roofline.atan2_halves(e, tile),
+                                 roofline.atan2_halves_reference(e, tile)))
+    if err > ATAN2_TOL:
+        raise AssertionError(f"atan2_halves: |kernel - twin| {err} > "
+                             f"{ATAN2_TOL}")
+    log("roofline", f"atan2_halves (R3) {tuple(x.shape)} and the edge "
+                    f"cases: max |kernel - twin| {err:.3g} rad (limit "
+                    f"{ATAN2_TOL}); NaN and signed zeros as the twin's")
+    nbytes = 2 * x.numel() * 4
+    dst = torch.empty_like(x)
+    view = x.reshape(ROOF_C, ROOF_W // (1 << 15), 2, 1 << 14)
+    out = torch.empty((ROOF_C, ROOF_W // (1 << 15), 1 << 14), device=dev)
+    r1 = roofline_entry("hbm_copy_serial", roofline.hbm_copy_serial,
+                        roofline.hbm_copy_reference, lambda: dst.copy_(x), x,
+                        nbytes, 0, 93)
+    r2 = roofline_entry("hbm_copy_double_buffered",
+                        roofline.hbm_copy_double_buffered,
+                        roofline.hbm_copy_reference, lambda: dst.copy_(x), x,
+                        nbytes, 0, 72)
+    r3 = roofline_entry("atan2_halves", roofline.atan2_halves,
+                        roofline.atan2_halves_reference,
+                        lambda: torch.atan2(view[:, :, 0], view[:, :, 1],
+                                            out=out), x,
+                        x.numel() * 4 * 3 // 2, ATAN2_OPS * x.numel() // 2,
+                        155)
+    r1["max_abs_err"] = r2["max_abs_err"] = 0.0
+    r3["max_abs_err"] = err
+    slabs = -(-x.numel() * 4 // roofline.SLAB)
+    ctas = min(roofline.ring_ctas(), slabs)
+    ov = roofline.ring_overlap(roofline.ring_trace(x), ctas)
+    r2["ring"] = dict(ov, ctas=ctas, slab_bytes=roofline.SLAB)
+    log("roofline", f"R2's ring on {ctas} persistent CTAs: over "
+                    f"{ov['slab_pairs']} slabs a store of the slab before "
+                    f"was in flight {100 * ov['overlap_share']:.1f} % of the "
+                    f"load time (%globaltimer trace); R1: one {roofline.SLAB}"
+                    f"-byte slab a CTA, {slabs} CTAs")
+    del x, ragged, dst, out, view
+    torch.cuda.empty_cache()
+    roofline.hbm_copy_serial.launches = 0
+    roofline.hbm_copy_double_buffered.launches = 0
+    roofline.atan2_halves.launches = 0
+    t0 = time.monotonic()
+    obj = proofline.run(dev, resident_s=ROOF_RESIDENT_S)
+    counts = roofline_counts()
+    for e, key in ((r1, "R1"), (r2, "R2"), (r3, "R3")):
+        e["launches"] = counts[key]
+    if not all(counts.values()):
+        raise AssertionError(f"roofline: bench_roofline launched {counts}")
+    hw = obj["hardware_measured"]
+    for key in ("hbm_copy_serial_GBps", "hbm_copy_double_buffered_GBps",
+                "hbm_copy_copy__GBps", "tensor_core_bf16_TFLOPs",
+                "atan2_GSps"):
+        if not np.isfinite(hw[key]) or hw[key] <= 0:
+            raise AssertionError(f"roofline: {key} = {hw[key]}")
+    log("roofline", json.dumps(obj))
+    log("roofline", f"bench_roofline in {time.monotonic() - t0:.1f} s; "
+                    f"launches {counts}; {smi}")
+    torch.cuda.empty_cache()
+    return [r1, r2, r3]
+
+
+def _close_scaled(label, got, exp, tol):
+    got, exp = np.asarray(got, np.float64), np.asarray(exp, np.float64)
+    scale = max(1.0, float(np.max(np.abs(exp))))
+    err = float(np.max(np.abs(got - exp))) if got.shape == exp.shape \
+        else None
+    if err is None or err > tol * scale:
+        raise AssertionError(f"{label}: {got.shape} vs {exp.shape}, max "
+                             f"|card - cpu| {err} (limit {tol} * {scale})")
+    return err
+
+
+def phase_entries(tmp, dev, smi, k1):
+    """The measurement entry points (benchmarks/) on the card, each held
+    as its CPU test holds it: bench (every row ran, the resident row made
+    no host-to-device copy; K1's launches counted), bench_scaling up to 8
+    shards (each mesh's audio within 1e-6 of one shard's),
+    bench_realtime paced for REALTIME_S s (ok: no overflow after the
+    grace, flat latency, margin > 1; every sample accounted for),
+    MH_SCENARIOS of bench_multihost in one spawn (each as its serial
+    run), entry() (the step within 2e-5 * scale of the same step on the
+    CPU) and dryrun_multichip(8) (the CPU run's shapes), and the four new
+    examples at a small size against the same module on the CPU."""
+    from luaradio_tpu_torch.benchmarks import (bench_multihost,
+                                               bench_realtime, bench_scaling,
+                                               entry)
+    out = {}
+    wbfm.wbfm_mono.launches = 0
+    rec = pbench.run(dev, budget=ENTRY_BUDGET_S)
+    k1["bench_path_launches"] = wbfm.wbfm_mono.launches
+    rates = [rec.get(k) for k in ("value", "runner_samples_per_sec",
+                                  "file_driven_samples_per_sec",
+                                  "file_resident_samples_per_sec",
+                                  "h2d_pageable_MBps")]
+    if not rec.get("ok") or not all(r and np.isfinite(r) and r > 0
+                                    for r in rates) \
+            or rec["file_resident_h2d_copies"] or not k1["bench_path_launches"]:
+        raise AssertionError(f"entries bench: {rec}, K1 launches "
+                             f"{k1['bench_path_launches']}")
+    out["bench"] = rec
+    log("entries", "bench " + json.dumps(rec))
+
+    lines = []
+    summary = bench_scaling.run(8, emit=lines.append, device=dev)
+    if any(r["max_abs_err_vs_single"] > 1e-6 for r in summary["results"]):
+        raise AssertionError(f"entries bench_scaling: {summary}")
+    generic = bench_scaling.run_generic(8, emit=lines.append, device=dev)
+    out["scaling"] = {"bank": summary["results"], "generic": generic}
+    for ln in lines:
+        log("entries", "bench_scaling " + ln)
+
+    rt = bench_realtime.run_realtime(duration=REALTIME_S, device=dev)
+    left = rt["delivered_rf_samples"] - rt["dropped_rf_samples"] \
+        - 50 * rt["audio_samples_out"]
+    if not rt["ok"] or not 0 <= left < 50:
+        raise AssertionError(f"entries bench_realtime: {rt}")
+    out["realtime"] = rt
+    log("entries", "bench_realtime " + json.dumps(rt))
+
+    t0 = time.monotonic()
+    mh = bench_multihost.run(MH_SCENARIOS, tmpdir=tmp, device=dev)
+    if not all(r["ok"] for r in mh):
+        raise AssertionError(f"entries bench_multihost: {mh}")
+    out["multihost"] = mh
+    log("entries", f"bench_multihost {json.dumps(mh)} "
+                   f"({time.monotonic() - t0:.1f} s)")
+
+    step, (state, x) = entry.entry(dev)
+    audio = step(state, x)[1]
+    cstep, (cstate, cx) = entry.entry("cpu")
+    err = _close_scaled("entries entry()", audio.cpu(), cstep(cstate, cx)[1],
+                        2e-5)
+    dry, cdry = entry.dryrun_multichip(8, dev), entry.dryrun_multichip(
+        8, "cpu")
+    if dry != cdry:
+        raise AssertionError(f"entries dryrun_multichip: {dry} vs {cdry}")
+    out["entry"] = {"audio": list(audio.shape), "max_abs_err_vs_cpu": err,
+                    "dryrun_multichip": dry}
+    log("entries", f"entry(): audio {tuple(audio.shape)} within {err:.3g} "
+                   f"of the CPU step; dryrun_multichip(8): {json.dumps(dry)}")
+    out["examples"] = phase_new_examples(tmp, dev)
+    log("entries", f"{smi}")
+    return out
+
+
+def phase_new_examples(tmp, dev):
+    """iqfile_converter (u8, s16le and f32le inputs, each output's bytes
+    equal to the CPU run's), iqfile_wbfm_stereo over 0.25 s of a stereo
+    station 250 kHz up (L+R within 2 LSB of the CPU run, each channel's
+    tone > 3x the other's), channel_bank_pod (64 channels, 4 chunks,
+    within 2e-4 * scale of the CPU) and wideband_channelizer_bank (its
+    synthesized capture, within 2e-4 * scale of the CPU, channels 1, 3
+    and 7 among the four loudest)."""
+    from luaradio_tpu_torch.examples import (channel_bank_pod,
+                                             iqfile_converter,
+                                             iqfile_wbfm_stereo,
+                                             wideband_channelizer_bank)
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(31)
+    out = {}
+    for fmt, raw in (("u8", rng.integers(0, 256, 8192).astype(np.uint8)),
+                     ("s16le", rng.integers(-32768, 32768, 8192).astype(
+                         "<i2")),
+                     ("f32le", rng.standard_normal(8192).astype("<f4"))):
+        src = os.path.join(tmp, f"conv.{fmt}")
+        raw.tofile(src)
+        got = {}
+        for key, d in (("card", dev), ("cpu", cpu)):
+            dst = os.path.join(tmp, f"conv.{fmt}.{key}")
+            target = "f32le" if fmt != "f32le" else "s16le"
+            iqfile_converter.build(src, fmt, dst, target).run(device=d)
+            with open(dst, "rb") as f:
+                got[key] = f.read()
+        if got["card"] != got["cpu"] or not got["card"]:
+            raise AssertionError(f"iqfile_converter {fmt}: the card's bytes "
+                                 f"differ from the CPU's")
+    out["iqfile_converter"] = "bytes equal to the CPU run (u8, s16le, f32le)"
+
+    n = int(RATE * 0.25)
+    t = np.arange(n) / RATE
+    left = 0.4 * np.sin(2 * np.pi * TONE_L * t)
+    right = 0.4 * np.sin(2 * np.pi * TONE_R * t)
+    mpx = (left + right) + 0.1 * np.cos(2 * np.pi * 19e3 * t) \
+        + (left - right) * np.cos(2 * np.pi * 38e3 * t)
+    z = np.exp(1j * (2 * np.pi * 75e3 * np.cumsum(mpx) / RATE
+                     + 2 * np.pi * 250e3 * t)).astype(np.complex64)
+    cap = os.path.join(tmp, "stereo_example.iq")
+    z.tofile(cap)
+    pcm = {}
+    for key, d in (("card", dev), ("cpu", cpu)):
+        wav = os.path.join(tmp, f"stereo_example.{key}.wav")
+        iqfile_wbfm_stereo.build(cap, wav).run(device=d)
+        with wave.open(wav) as w:
+            pcm[key] = np.frombuffer(w.readframes(w.getnframes()),
+                                     np.int16).reshape(-1, 2).astype(
+                                         np.int64)
+    g, c = pcm["card"], pcm["cpu"]
+    sum_err = int(np.max(np.abs(g.sum(1) - c.sum(1)))) \
+        if g.shape == c.shape else None
+
+    def tone(ch, f):
+        seg = g[4096:8192, ch] / 32767.5
+        spec = np.abs(np.fft.rfft(seg * np.hanning(len(seg))))
+        i = int(round(f * len(seg) / 44100))
+        return spec[max(0, i - 2):i + 3].max()
+    if sum_err is None or sum_err > 2 or tone(0, TONE_L) <= 3 * tone(
+            0, TONE_R) or tone(1, TONE_R) <= 3 * tone(1, TONE_L):
+        raise AssertionError(f"iqfile_wbfm_stereo: {g.shape} vs {c.shape}, "
+                             f"L+R off by {sum_err} LSB")
+    out["iqfile_wbfm_stereo"] = {"frames": len(g), "sum_lsb": sum_err}
+
+    audio = [torch.cat(channel_bank_pod.run(1, d, emit=lambda _: None),
+                       -1).cpu() for d in (dev, cpu)]
+    out["channel_bank_pod"] = _close_scaled("channel_bank_pod", *audio, 2e-4)
+
+    cap = os.path.join(tmp, "wideband.iq")
+    wideband_channelizer_bank.synth_capture(cap)
+    wb = [wideband_channelizer_bank.run(cap, device=d) for d in (dev, cpu)]
+    err = _close_scaled("wideband_channelizer_bank", *wb, 2e-4)
+    rms = np.sqrt((wb[0] ** 2).mean(axis=-1))
+    top = {int(i) for i in np.argsort(rms)[::-1][:4]}
+    if not {1, 3, 7} <= top:
+        raise AssertionError(f"wideband_channelizer_bank: loudest {top}")
+    out["wideband_channelizer_bank"] = err
+    log("entries", f"examples: {json.dumps(out)}")
+    return out
+
+
 def profile_run(run, out, what):
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -4506,6 +4643,7 @@ def main(argv):
                  f" in {time.monotonic() - t0:.2f} s")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
+    rfl = phase_roofline(dev, gen, smi)
     k1, k2_err, x_wire = phase_kernels(dev, gen)
     k1["launches"] = phase_flagship(dev, x_wire)
     del x_wire
@@ -4621,7 +4759,9 @@ def main(argv):
                               for k, v in live.items()},
                           "net_sps": net}))
     log("fir-fft", json.dumps({"device": smi, **fir_fft}))
-    entries = [k1, k2, k3, overlap]
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_entries(tmp, dev, smi, k1)
+    entries = [k1, k2, k3, overlap] + rfl
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(
