@@ -19,6 +19,19 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    bound; R2's ring traced (%globaltimer) to show a load in flight
    beside each store; then benchmarks/bench_roofline.py once, whose
    launches of R1-R3 are counted and whose object is printed;
+2b. probes: the last three Pallas sites' kernels, each held against its
+   twin on the card: the windowed gather S8 (csrc/window.cu) bit-equal at
+   the script's shape [8, 2^16] and the flagship's [8, 2^23] (head 512,
+   tile 8192) and on two ragged shapes, the PLL ablations S7
+   (csrc/pll_ablate.cu) over 4096 samples for its four variants within
+   1e-6, the flagship taken apart S4 (csrc/wbfm_proto.cu) at [8, 2^18]
+   for every variant of its entry point (the script's five, every other
+   precision, the four stages) within 2e-5 * scale; then their entry
+   points (benchmarks/dma_window.py, pll_ablate.py, wbfm_proto.py) once,
+   launches counted, records printed and checked (S8 OK, S4's fp32 and
+   split variants within 2e-5 of K1), their times, S7's chain floors and
+   S8's library call read into the kernels line beside S4's twin timed
+   at [8, 2^22] and S8's bound at R2's rate;
 3. K1 / K2: each kernel at the flagship's full width (8 channels x 4 194 304
    samples, D = 8, K = 640), on a ragged chunk, on an input 8 bytes off a
    16-byte boundary and under a compact plan (K = 16 384), held against
@@ -202,16 +215,16 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     step on the CPU and dryrun_multichip(8), and the examples
     iqfile_converter, iqfile_wbfm_stereo, channel_bank_pod and
     wideband_channelizer_bank against the same modules on the CPU;
-32. the kernels line (K1, K2, K3, the scan, R1, R2, R3) and the final
-    status line.
+32. the kernels line (K1, K2, K3, the scan, R1, R2, R3, S4, S7, S8) and
+    the final status line.
 
 Launch counts are zeroed just before the flagship, the K2 graph run, the
 stereo CLI run, the overlap path run, the rx_am --synchronous run, the
 rx_rds run, the bank-mono K2 run, the two bank-stereo runs, each block
 row, the FM round trip under the K2 rule, the newton call and each paced
 live example, the time phase (where each must stay at 0), the
-bench_roofline run (R1-R3) and the port's bench run (K1), and read just
-after: each kernel must have run on its path.  Any failure
+bench_roofline run (R1-R3), the three probes' entry points (S4, S7, S8)
+and the port's bench run (K1), and read just after: each kernel must have run on its path.  Any failure
 raises (non-zero exit); a hang ends the run with a traceback after 480 s.
 ``--profile PATH`` also writes a torch.profiler table of one mono graph
 run to PATH, of the stereo run to PATH.stereo.txt, of the rx_am
@@ -262,10 +275,13 @@ from luaradio_tpu_torch.blocks.protocol import rds as rds_proto
 from luaradio_tpu_torch.benchmarks import bench as pbench
 from luaradio_tpu_torch.benchmarks import bench_blocks as pblocks
 from luaradio_tpu_torch.benchmarks import bench_roofline as proofline
+from luaradio_tpu_torch.benchmarks import dma_window as pbench_dma
+from luaradio_tpu_torch.benchmarks import pll_ablate as pbench_pll
+from luaradio_tpu_torch.benchmarks import wbfm_proto as pbench_s4
 from luaradio_tpu_torch.blocks.signal import carrier
 from luaradio_tpu_torch.core.runtime import Runner
-from luaradio_tpu_torch.ops import (cudabuild, pll, pll_overlap, roofline,
-                                   wbfm)
+from luaradio_tpu_torch.ops import (cudabuild, pll, pll_ablate, pll_overlap,
+                                   roofline, wbfm, wbfm_proto, window)
 from luaradio_tpu_torch.ops.complexutil import (complex_to_wire,
                                                 wire_to_complex)
 from luaradio_tpu_torch.ops.fir import _conv_real
@@ -4418,6 +4434,289 @@ def phase_roofline(dev, gen, smi):
     return [r1, r2, r3]
 
 
+#: the probes phase: S8 held bit-equal at the script's and the flagship's
+#: shapes (C, head, tile, NT) and on ragged ones; S7 held within
+#: PROBE_PLL_TOL (err and state; the same float32 operations and atan2f on
+#: both sides) over the first PROBE_PLL_N samples of its entry point's
+#: timed 2^21 call and on PROBE_PLL_RAGGED samples (three chunks of 2048,
+#: the last ragged); S4 held within 2e-5 * scale at its entry point's own
+#: (C, T), tiles and inputs for every variant, then on a random carry
+PROBE_S8 = ((8, 512, 8192, 4), (8, 512, 8192, 512))
+PROBE_PLL_N, PROBE_PLL_RAGGED, PROBE_PLL_TOL = 4096, 5000, 1e-6
+#: S4 at other (K, D, tile, block, deint, fir): the band at u = 64 and 26
+#: (5 and 3 k-steps), the CUDA-core sum of a bf16 mode (tile/D = 96), a
+#: block of 256
+PROBE_S4_SHAPES = ((256, 4, 2048, 128, "sel3", "split22"),
+                   (128, 5, 1280, 128, "sel2", "sel3"),
+                   (128, 8, 768, 32, "highest", "split22"),
+                   (128, 8, 2048, 256, "sel3cat", "two"))
+PROBE_REPS = 3
+
+
+def probe_counts() -> dict:
+    return {"S4": wbfm_proto.wbfm_proto.launches,
+            "S7": pll_ablate.pll_ablate.launches,
+            "S8": window.window_gather.launches}
+
+
+def hold_window(dev, gen):
+    """S8 bit-equal to its twin at PROBE_S8's shapes, with a halo of 37
+    floats (the scalar path) and with x 4 bytes off a 16-byte boundary.
+    Returns the largest |kernel - twin|."""
+    cases = [(c, head, tile, nt, 0) for c, head, tile, nt in PROBE_S8]
+    cases += [(3, 37, 5, 7, 0), (2, 64, 96, 3, 1)]
+    err = 0.0
+    for c, head, tile, nt, off in cases:
+        buf = torch.randn(c * 2 * tile * nt + off, generator=gen, device=dev)
+        x = buf[off:].view(c, 2 * tile * nt)
+        carry = torch.randn((c, head), generator=gen, device=dev)
+        got = window.window_gather(x, carry, tile)
+        exp = window.window_gather_reference(x, carry, tile)
+        torch.cuda.synchronize()
+        if got.shape != exp.shape or not torch.equal(got, exp):
+            raise AssertionError(f"window_gather [{c}, {2 * tile * nt}] "
+                                 f"head {head} tile {tile} offset {off}: "
+                                 f"differs from its twin")
+        err = max(err, float((got - exp).abs().max()))
+    log("probes", f"window_gather (S8) bit-equal to its twin on "
+                  f"{len(cases)} shapes (flagship [8, 2^23]; a 37-float "
+                  f"halo; x 4 bytes off 16): max |kernel - twin| {err}")
+    return err
+
+
+def _hold_pll(label, x, state, params, v, prefix=None):
+    """S7's variant ``v`` on x against its twin: the whole err and state,
+    or with ``prefix`` the first ``prefix`` err values.  Returns (max
+    |kernel - twin|, the twin's host ms)."""
+    ge, gs = pll_ablate.pll_ablate(x, state, *params, v)
+    xs = x if prefix is None else x[:, :prefix]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ee, es = pll_ablate.pll_ablate_reference(xs, state, *params, v)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    if prefix is None:
+        e = max(float((ge - ee).abs().max()), float((gs - es).abs().max()))
+    else:
+        e = float((ge[:, :prefix] - ee).abs().max())
+        if not bool(torch.isfinite(gs).all()):
+            raise AssertionError(f"pll_ablate {v} {label}: state {gs}")
+    if not e <= PROBE_PLL_TOL:
+        raise AssertionError(f"pll_ablate {v} {label}: |kernel - twin| {e} "
+                             f"> {PROBE_PLL_TOL}")
+    return e, ms
+
+
+def hold_pll_ablate(dev, gen):
+    """S7's four variants against the twin on the card: the first
+    PROBE_PLL_N err values of the entry point's timed call (its 2^21
+    samples and zero state), PROBE_PLL_RAGGED samples of noise from a
+    nonzero state (err and state), and 1024 samples at other constants.
+    Returns (max error, the twin's host ms a variant at PROBE_PLL_N)."""
+    x, zero = pbench_pll.inputs(dev)
+    xr = torch.randn((2, PROBE_PLL_RAGGED), generator=gen, device=dev)
+    state = torch.tensor([0.4, 1.0, 0.02], device=dev)
+    # other constants: a fast loop, a fractional multiplier, a tight clip
+    params = (0.05, 1e-3, -0.3, 0.3, 2.5)
+    err, plain = 0.0, {}
+    for v in pll_ablate.VARIANTS:
+        e, plain[v] = _hold_pll(f"[{x.shape[1]}] prefix", x, zero,
+                                pbench_pll.PARAMS, v, prefix=PROBE_PLL_N)
+        er, _ = _hold_pll(f"[{PROBE_PLL_RAGGED}]", xr, state,
+                          pbench_pll.PARAMS, v)
+        eo, _ = _hold_pll(f"{params}", xr[:, :1024].contiguous(), state,
+                          params, v)
+        err = max(err, e, er, eo)
+        log("probes", f"pll_ablate (S7) {v}: max |kernel - twin| {e:.3g} on "
+                      f"the first {PROBE_PLL_N} of the entry point's "
+                      f"{x.shape[1]} samples, {er:.3g} on {PROBE_PLL_RAGGED} "
+                      f"(err and state), {eo:.3g} at {params} (limit "
+                      f"{PROBE_PLL_TOL}); twin {plain[v]:.1f} ms at "
+                      f"{PROBE_PLL_N} (host clock, one run)")
+    return err, plain
+
+
+def hold_wbfm_proto(dev, gen):
+    """S4 against its twin for every variant of its entry point (the
+    script's, every precision, the four stages) at the entry point's own
+    (C, T), tiles and inputs, then on a random carry at inv_gain 0.7, each
+    within 2e-5 * scale; then at PROBE_S4_SHAPES.  Returns (largest
+    |kernel - twin|, largest |kernel - twin| over scale)."""
+    x, carry, taps = pbench_s4.inputs(dev)
+    c, t = x.shape[0], x.shape[1] // 2
+    rand = torch.randn(carry.shape, generator=gen, device=dev)
+    worst, worst_scaled = 0.0, 0.0
+    for name, dp, fp, st, mul in pbench_s4.VARIANTS:
+        ev, sv = 0.0, 0.0
+        for cr, gain in ((carry, 1.0), (rand, 0.7)):
+            args = (cr, x, taps, pbench_s4.D, gain, mul * pbench_s4.TILE, 128,
+                    dp, fp, st)
+            gc, got = wbfm_proto.wbfm_proto(*args)
+            ec, exp = wbfm_proto.wbfm_proto_reference(*args)
+            torch.cuda.synchronize()
+            if got.shape != exp.shape or not torch.equal(gc, ec):
+                raise AssertionError(f"wbfm_proto {name}: {tuple(got.shape)}"
+                                     f" vs {tuple(exp.shape)}, or the carry "
+                                     f"differs")
+            scale = max(1.0, float(exp.abs().max()))
+            e = float((got - exp).abs().max())
+            if not e <= 2e-5 * scale:
+                raise AssertionError(f"wbfm_proto {name} (inv_gain {gain}): "
+                                     f"|kernel - twin| {e} > 2e-5 * {scale}")
+            ev, sv = max(ev, e), max(sv, scale)
+            worst, worst_scaled = max(worst, e), max(worst_scaled, e / scale)
+        log("probes", f"wbfm_proto (S4) {name} ({dp}, {fp}, {st}) [{c} x "
+                      f"{t}] tile {mul * pbench_s4.TILE}: max |kernel - "
+                      f"twin| {ev:.3g} (scale up to {sv:.4g}) on the entry "
+                      f"point's inputs and on a random carry")
+    del x, carry, rand
+    for k, d, tile, block, dp, fp in PROBE_S4_SHAPES:
+        xs = torch.randn((2, 2 * 3 * tile), generator=gen, device=dev)
+        cs = torch.randn((2, 2 * k), generator=gen, device=dev)
+        hs = torch.randn(k, generator=gen, device=dev) / k
+        args = (cs, xs, hs, d, 1.0, tile, block, dp, fp, "full")
+        got = wbfm_proto.wbfm_proto(*args)[1]
+        exp = wbfm_proto.wbfm_proto_reference(*args)[1]
+        scale = max(1.0, float(exp.abs().max()))
+        e = float((got - exp).abs().max())
+        if got.shape != exp.shape or not e <= 2e-5 * scale:
+            raise AssertionError(f"wbfm_proto K {k} D {d} tile {tile} block "
+                                 f"{block} ({dp}, {fp}): |kernel - twin| "
+                                 f"{e} > 2e-5 * {scale}")
+        worst, worst_scaled = max(worst, e), max(worst_scaled, e / scale)
+    log("probes", f"wbfm_proto (S4) at {len(PROBE_S4_SHAPES)} other (K, D, "
+                  f"tile, block): within 2e-5 * scale of its twin")
+    torch.cuda.empty_cache()
+    return worst, worst_scaled
+
+
+def phase_probes(dev, gen, smi):
+    """S8, S7 and S4 held against their twins on the card (hold_*), then
+    their entry points (benchmarks/dma_window.py, pll_ablate.py,
+    wbfm_proto.py) run once with the launch counts zeroed just before and
+    read just after, each record printed and checked (S8 OK at both
+    shapes; every rate finite; S4's fp32 and split variants within 2e-5
+    of K1).  The holds run at the entry points' sizes and inputs (S7: the
+    first PROBE_PLL_N samples of the timed call).  The kernels-line
+    entries take their times from the entry points' runs (S8's bound also
+    at the R2 rate its entry point measures; S7's the clock64 chain floor
+    of `full`), S4's and S8's twins timed at the entry points' sizes.
+    Returns the three entries."""
+    t_start = time.monotonic()
+    s8_err = hold_window(dev, gen)
+    s7_err, s7_plain = hold_pll_ablate(dev, gen)
+    s4_err, s4_scaled = hold_wbfm_proto(dev, gen)
+    t_hold = time.monotonic() - t_start
+
+    window.window_gather.launches = 0
+    pll_ablate.pll_ablate.launches = 0
+    wbfm_proto.wbfm_proto.launches = 0
+    s8 = pbench_dma.run(dev, emit=lambda ln: log("probes", ln))
+    s7 = pbench_pll.run(dev, emit=lambda ln: log("probes", ln))
+    s4 = pbench_s4.run(dev)
+    counts = probe_counts()
+    log("probes", f"launches over the three entry points: {counts}")
+    if not all(counts.values()):
+        raise AssertionError(f"probes: a kernel did not launch: {counts}")
+    for rec in (s8, s7, s4):
+        log("probes", json.dumps(rec))
+    if not s8["ok"]:
+        raise AssertionError("dma_window: DMA MISMATCH")
+    rates = [s7[k] for k in ("shipped",) + pll_ablate.VARIANTS] + [
+        s4[k] for k in s4 if k.endswith("_GSps")]
+    if not all(np.isfinite(r) and r > 0 for r in rates):
+        raise AssertionError(f"probes: a rate is not a positive number")
+    for name in ("v2_sel3_fir22", "v3_sel3cat_fir2", "v3_sel3_fir2",
+                 "v3_sel3cat_fir22", "v3_sel3cat_fir2_t32k", "p_highest",
+                 "p_two_hi"):
+        if not s4[f"{name}_rel_err"] <= 2e-5:
+            raise AssertionError(f"wbfm_proto {name}: rel_err against K1 "
+                                 f"{s4[f'{name}_rel_err']}")
+
+    flag = s8["flagship"]
+    nbytes = flag["bytes"]
+    s8e = {"name": "window_gather", "route": "cuda",
+           "source": "luaradio_tpu_torch/csrc/window.cu",
+           "replaces": "scratch/pallas_dma_test.py:13",
+           "launches": counts["S8"], "max_abs_err": s8_err, "ms": flag["ms"],
+           "plain_ms": None, "bound_ms": flag["bound_ms_at_sheet"],
+           "bound_by": "bytes", "library_ms": flag["library_ms"],
+           "bound_ms_at_r2": flag["bound_ms_at_r2"],
+           "r2_GBps": flag["r2_GBps"], "shape": flag["shape"]}
+    x = torch.randn(flag["shape"], generator=gen, device=dev)
+    carry = torch.randn((flag["shape"][0], flag["head"]), generator=gen,
+                        device=dev)
+    s8e["plain_ms"] = median_ms(lambda: window.window_gather_reference(
+        x, carry, flag["tile"]), reps=PROBE_REPS)
+    del x, carry
+    log("probes", f"window_gather {flag['shape']}: {flag['ms']:.4f} ms "
+                  f"({flag['GBps']:.1f} GB/s), twin {s8e['plain_ms']:.4f} "
+                  f"ms, library {flag['library_ms']:.4f} ms, bound "
+                  f"{s8e['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at "
+                  f"3.35 TB/s) and {s8e['bound_ms_at_r2']:.4f} ms at R2's "
+                  f"{flag['r2_GBps']:.1f} GB/s; {smi}")
+
+    # S7's bound is the loop-carried chain of `full`: n serial steps at the
+    # ns a step its clock64 probe measured in this run (the operations
+    # the loop must do one after another); its bytes, 12 a sample, beside
+    n = s7["n"]
+    ms7 = {v: n / s7[v] / 1e3 for v in pll_ablate.VARIANTS}
+    chain_ms = {v: n * s7["chain_probe"][v]["ns_per_step"] / 1e6
+                for v in pll_ablate.VARIANTS}
+    s7e = {"name": "pll_ablate", "route": "cuda",
+           "source": "luaradio_tpu_torch/csrc/pll_ablate.cu",
+           "replaces": "scratch/pll_ablate.py:25",
+           "launches": counts["S7"], "max_abs_err": s7_err,
+           "ms": ms7["full"], "plain_ms": s7_plain["full"],
+           "bound_ms": chain_ms["full"], "bound_by": "operations",
+           "library_ms": None, "n": n, "plain_n": PROBE_PLL_N,
+           "bytes_bound_ms": 1e3 * 12 * n / HBM_BYTES_PER_S,
+           "variants": {v: {"ms": ms7[v], "plain_ms_at_plain_n": s7_plain[v],
+                            "chain_probe_ms": chain_ms[v],
+                            **s7["chain_probe"][v]}
+                        for v in pll_ablate.VARIANTS},
+           "shipped_k3_ms": n / s7["shipped"] / 1e3}
+    s7e["floor_ratio"] = s7e["ms"] / s7e["bound_ms"]
+    log("probes", f"pll_ablate full [{n}]: {s7e['ms']:.3f} ms, chain floor "
+                  f"{s7e['bound_ms']:.3f} ms ({s7e['floor_ratio']:.3f}x); "
+                  f"twin {s7e['plain_ms']:.1f} ms at {PROBE_PLL_N} (host "
+                  f"clock); bytes {s7e['bytes_bound_ms']:.5f} ms; {smi}")
+
+    c, t = s4["shape"]
+    x, carry, taps = pbench_s4.inputs(dev, c, t)
+    name, dp, fp, st, mul = pbench_s4.VARIANTS[0]
+    args = (carry, x, taps, 8, 1.0, mul * s4["tile"], 128, dp, fp, st)
+    plain_ms = median_ms(lambda: wbfm_proto.wbfm_proto_reference(*args),
+                         reps=PROBE_REPS)
+    del x, carry
+    torch.cuda.empty_cache()
+    k = len(pbench_s4.proto_taps())
+    nbytes = c * t * 8 + 2 * c * k * 4 * 2 + k * 4 + c * t // 8 * 4
+    ops = c * t * DISC_OPS + c * t // 8 * 3 * k * 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    s4e = {"name": "wbfm_proto", "route": "cuda",
+           "source": "luaradio_tpu_torch/csrc/wbfm_proto.cu",
+           "replaces": "scratch/wbfm_proto.py:82",
+           "launches": counts["S4"], "max_abs_err": s4_err,
+           "max_scaled_err": s4_scaled,
+           "ms": s4[f"{name}_ms"], "plain_ms": plain_ms,
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "variant": name, "shape": [c, t],
+           "k1_ms": s4["prod_ms"],
+           "variants_ms": {v[0]: s4[f"{v[0]}_ms"] for v in pbench_s4.VARIANTS},
+           "rel_err_vs_k1": {v[0]: s4[f"{v[0]}_rel_err"]
+                             for v in pbench_s4.VARIANTS if v[3] == "full"}}
+    log("probes", f"wbfm_proto {name} [{c} x {t}]: {s4e['ms']:.4f} ms, "
+                  f"twin {plain_ms:.4f} ms, K1 {s4['prod_ms']:.4f} ms, bound "
+                  f"{s4e['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 "
+                  f"TB/s; {ops / 1e9:.2f} Gop at 67 TFLOP/s); holds "
+                  f"{t_hold:.1f} s, phase {time.monotonic() - t_start:.1f} "
+                  f"s; {smi}")
+    torch.cuda.empty_cache()
+    return [s4e, s7e, s8e]
+
+
 def _close_scaled(label, got, exp, tol):
     got, exp = np.asarray(got, np.float64), np.asarray(exp, np.float64)
     scale = max(1.0, float(np.max(np.abs(exp))))
@@ -4644,6 +4943,7 @@ def main(argv):
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     rfl = phase_roofline(dev, gen, smi)
+    probes = phase_probes(dev, gen, smi)
     k1, k2_err, x_wire = phase_kernels(dev, gen)
     k1["launches"] = phase_flagship(dev, x_wire)
     del x_wire
@@ -4761,7 +5061,7 @@ def main(argv):
     log("fir-fft", json.dumps({"device": smi, **fir_fft}))
     with tempfile.TemporaryDirectory() as tmp:
         phase_entries(tmp, dev, smi, k1)
-    entries = [k1, k2, k3, overlap] + rfl
+    entries = [k1, k2, k3, overlap] + rfl + probes
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(
