@@ -11,14 +11,21 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    K1's halves, all at once, and cc the host wire conversions
    (native/src/format_conv.c);
 2a. roofline: the roofline probes (csrc/roofline.cu) at [8, 2^23]
-   float32: the HBM copies R1 (serial) and R2 (double-buffered ring) held
-   bit-equal to their twin, also on a ragged shape, R3 (atan2 of each
-   2^15-column tile's halves) within 4.8e-7 rad of its twin, also on
-   every pairing of signed zeros, infinities, NaN and extremes; each
-   timed beside its twin, its library call (copy_, torch.atan2) and its
-   bound; R2's ring traced (%globaltimer) to show a load in flight
-   beside each store; then benchmarks/bench_roofline.py once, whose
-   launches of R1-R3 are counted and whose object is printed;
+   float32: the HBM copies R1 (one load in flight a CTA) and R2 (loads
+   kept in flight ahead of the stores), persistent rings of TMA bulk
+   copies, held bit-equal to their twin and input there, on a ragged
+   shape and on the shapes that reach their schedule's edges (fewer
+   slabs than CTAs, a slab count no multiple of the grid, a partial last
+   slab, byte counts no multiple of 16, one slab, a tail alone); R3
+   (atan2 of each 2^15-column tile's halves) within 4.8e-7 rad of its
+   twin, also on every pairing of signed zeros, infinities, NaN and
+   extremes; each timed as a launch (CUDA events around one call) and
+   as device time (CUDA-graph replay) beside its twin, its library call
+   (copy_, torch.atan2) and its bound; R2's ring traced (%globaltimer)
+   for the share of its loads' time a store was in flight; then
+   benchmarks/bench_roofline.py once (copies and atan2 timed back to
+   back), whose launches of R1-R3 are counted and whose object is
+   printed;
 2b. probes: the last three Pallas sites' kernels, each held against its
    twin on the card: the windowed gather S8 (csrc/window.cu) bit-equal at
    the script's shape [8, 2^16] and the flagship's [8, 2^23] (head 512,
@@ -31,7 +38,8 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    launches counted, records printed and checked (S8 OK, S4's fp32 and
    split variants within 2e-5 of K1), their times, S7's chain floors and
    S8's library call read into the kernels line beside S4's twin timed
-   at [8, 2^22] and S8's bound at R2's rate;
+   at [8, 2^22] and S8's bound at R2's rate (both timed back to back by
+   dma_window, so at R2's device rate);
 3. K1 / K2: each kernel at the flagship's full width (8 channels x 4 194 304
    samples, D = 8, K = 640), on a ragged chunk, on an input 8 bytes off a
    16-byte boundary and under a compact plan (K = 16 384), held against
@@ -238,6 +246,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import faulthandler
 import io
 import json
@@ -4292,14 +4301,15 @@ def roofline_counts() -> dict:
             "R3": roofline.atan2_halves.launches}
 
 
-def hold_copy(name, fn, x):
+def hold_copy(name, fn, x, quiet=False):
     """R1 or R2 bit-equal to its twin (and to its input)."""
     got, exp = fn(x), roofline.hbm_copy_reference(x)
     torch.cuda.synchronize()
     if not (torch.equal(got, exp) and torch.equal(got, x)):
         raise AssertionError(f"{name} {tuple(x.shape)}: the copy differs "
                              f"from its twin")
-    log("roofline", f"{name} {tuple(x.shape)}: bit-equal to its twin")
+    if not quiet:
+        log("roofline", f"{name} {tuple(x.shape)}: bit-equal to its twin")
 
 
 def atan2_edges(dev, h):
@@ -4332,43 +4342,65 @@ def atan2_err(got, exp):
 
 
 def roofline_entry(name, fn, twin, library, x, nbytes, ops, source_line):
-    """A kernels-line entry of R1, R2 or R3: ms, twin and library ms
-    (CUDA events, median of REPS), bound of ``nbytes`` and ``ops``."""
+    """A kernels-line entry of R1, R2 or R3: ms, twin and library ms as a
+    launch (CUDA events around one call, median of REPS) and as device
+    time (CUDA-graph replay: device_ms, plain_device_ms,
+    library_device_ms), bound of ``nbytes`` and ``ops``."""
     ms = median_ms(lambda: fn(x))
     plain_ms = median_ms(lambda: twin(x))
     library_ms = median_ms(library)
+    dev_ms = graph_ms(lambda: fn(x))
+    plain_dev_ms = graph_ms(lambda: twin(x))
+    library_dev_ms = graph_ms(library)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     e = {"name": name, "route": "cuda",
          "source": "luaradio_tpu_torch/csrc/roofline.cu",
          "replaces": f"bench_roofline.py:{source_line}", "ms": ms,
          "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-         "library_ms": library_ms}
-    log("roofline", f"{name} {tuple(x.shape)}: {ms:.4f} ms (median of "
-                    f"{REPS}), twin {plain_ms:.4f} ms, library "
-                    f"{library_ms:.4f} ms, bound {e['bound_ms']:.4f} ms "
+         "library_ms": library_ms, "device_ms": dev_ms,
+         "plain_device_ms": plain_dev_ms,
+         "library_device_ms": library_dev_ms}
+    log("roofline", f"{name} {tuple(x.shape)}: a launch {ms:.4f} ms (median "
+                    f"of {REPS}), twin {plain_ms:.4f}, library "
+                    f"{library_ms:.4f}; device {dev_ms:.4f} ms (CUDA-graph "
+                    f"replay), twin {plain_dev_ms:.4f}, library "
+                    f"{library_dev_ms:.4f} ({dev_ms / library_dev_ms:.4f}x "
+                    f"the library); bound {e['bound_ms']:.4f} ms "
                     f"({nbytes / 1e6:.1f} MB at 3.35 TB/s; H100 SXM data "
-                    f"sheet); {nbytes / ms / 1e6:.1f} GB/s")
+                    f"sheet); {nbytes / dev_ms / 1e6:.1f} GB/s on device")
     return e
 
 
 def phase_roofline(dev, gen, smi):
     """R1, R2 and R3 (csrc/roofline.cu) at [8, 2^23]: the copies bit-equal
     to their twin (and on a ragged shape whose bytes are no multiple of
-    16), R3 within ATAN2_TOL of its twin (and on every pairing of signed
-    zeros, infinities, NaN and extremes, through its vector and scalar
-    paths), each timed beside its twin, its library call and its bound;
-    R2's ring traced to show its loads in flight beside its stores.  Then
+    16, and on each shape of ops/roofline.py edge_shapes for the copy's
+    grid on this card), R3 within ATAN2_TOL of its twin (and on every
+    pairing of signed zeros, infinities, NaN and extremes, through its
+    vector and scalar paths), each timed as a launch and as device time
+    beside its twin, its library call and its bound; R2's ring traced
+    for the share of its loads' time a store was in flight.  Then
     benchmarks/bench_roofline.py once, its launches of R1-R3 counted
     (zeroed just before), its object printed.  Returns the three
     kernels-line entries."""
     x = torch.randn((ROOF_C, ROOF_W), generator=gen, device=dev)
     ragged = torch.randn((3, 2 * 5003), generator=gen, device=dev)
-    for name, fn in (("hbm_copy serial (R1)", roofline.hbm_copy_serial),
-                     ("hbm_copy double-buffered (R2)",
-                      roofline.hbm_copy_double_buffered)):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, fn, ring in (
+            ("hbm_copy serial (R1)", roofline.hbm_copy_serial, roofline.R1),
+            ("hbm_copy double-buffered (R2)",
+             roofline.hbm_copy_double_buffered, roofline.R2)):
         hold_copy(name, fn, x)
         hold_copy(name, fn, ragged)
+        grid = ring.ctas_per_sm * sms
+        edges = roofline.edge_shapes(ring, grid)
+        for shape in edges.values():
+            hold_copy(name, fn, torch.randn(shape, generator=gen,
+                                            device=dev), quiet=True)
+        log("roofline", f"{name}: bit-equal to its twin on the "
+                        f"{len(edges)} edge shapes of its {grid}-CTA grid "
+                        f"({', '.join(f'{k} {v}' for k, v in edges.items())})")
     err = atan2_err(roofline.atan2_halves(x),
                     roofline.atan2_halves_reference(x))
     for tile in (8, 6):                    # float4 and scalar paths
@@ -4400,15 +4432,16 @@ def phase_roofline(dev, gen, smi):
                         155)
     r1["max_abs_err"] = r2["max_abs_err"] = 0.0
     r3["max_abs_err"] = err
-    slabs = -(-x.numel() * 4 // roofline.SLAB)
+    slabs = roofline.n_slabs(x.numel() * 4, roofline.R2.stage_bytes)
     ctas = min(roofline.ring_ctas(), slabs)
     ov = roofline.ring_overlap(roofline.ring_trace(x), ctas)
-    r2["ring"] = dict(ov, ctas=ctas, slab_bytes=roofline.SLAB)
-    log("roofline", f"R2's ring on {ctas} persistent CTAs: over "
-                    f"{ov['slab_pairs']} slabs a store of the slab before "
-                    f"was in flight {100 * ov['overlap_share']:.1f} % of the "
-                    f"load time (%globaltimer trace); R1: one {roofline.SLAB}"
-                    f"-byte slab a CTA, {slabs} CTAs")
+    r2["ring"] = dict(ov, ctas=ctas, **dataclasses.asdict(roofline.R2))
+    r1["ring"] = dataclasses.asdict(roofline.R1)
+    log("roofline", f"R2's ring on {ctas} persistent CTAs "
+                    f"({roofline.R2}): over {ov['slab_pairs']} slabs a store "
+                    f"of the same CTA was in flight "
+                    f"{100 * ov['overlap_share']:.1f} % of the load time "
+                    f"(%globaltimer trace); R1: {roofline.R1}")
     del x, ragged, dst, out, view
     torch.cuda.empty_cache()
     roofline.hbm_copy_serial.launches = 0
@@ -4427,6 +4460,12 @@ def phase_roofline(dev, gen, smi):
                 "atan2_GSps"):
         if not np.isfinite(hw[key]) or hw[key] <= 0:
             raise AssertionError(f"roofline: {key} = {hw[key]}")
+    r1["bench_roofline_GBps"] = hw["hbm_copy_serial_GBps"]
+    r2["bench_roofline_GBps"] = hw["hbm_copy_double_buffered_GBps"]
+    r2["bench_roofline_copy__GBps"] = hw["hbm_copy_copy__GBps"]
+    r2["flagship_fraction_of_R2_byte_roofline"] = \
+        obj["rows"][0]["fraction_of_R2_byte_roofline"]
+    r3["bench_roofline_GSps"] = hw["atan2_GSps"]
     log("roofline", json.dumps(obj))
     log("roofline", f"bench_roofline in {time.monotonic() - t0:.1f} s; "
                     f"launches {counts}; {smi}")
@@ -4599,7 +4638,8 @@ def phase_probes(dev, gen, smi):
     of K1).  The holds run at the entry points' sizes and inputs (S7: the
     first PROBE_PLL_N samples of the timed call).  The kernels-line
     entries take their times from the entry points' runs (S8's bound also
-    at the R2 rate its entry point measures; S7's the clock64 chain floor
+    at the R2 rate its entry point measures (back to back: the device
+    rate); S7's the clock64 chain floor
     of `full`), S4's and S8's twins timed at the entry points' sizes.
     Returns the three entries."""
     t_start = time.monotonic()
@@ -4931,7 +4971,7 @@ def main(argv):
                   f"{torch.version.cuda}")
 
     t0 = time.monotonic()
-    built = cudabuild.build(cudabuild.SOURCES + tuple(cudabuild.PROBES))
+    built = cudabuild.build(cudabuild.SOURCES + ("wbfm_parts",))
     for src, (secs, out) in built.items():
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
         log("build", f"{src} in {secs:.2f} s: {'; '.join(regs)}")

@@ -30,8 +30,12 @@ Row part, in the port's own accounting:
   dependency chain measured in the same run (ops/pll.py chain_probe);
 * bench.py's resident row (benchmarks/bench.py file_resident).
 
-Every object carries ``device`` and ``power_limit_w``.  Times are CUDA
-events around one call, median of the repetitions, after a warm-up.
+Every object carries ``device`` and ``power_limit_w``.  The copies and
+atan2 are timed as the JAX script's ``_timeit`` times them: ``5 reps``
+back-to-back calls between two CUDA events, fenced once, over their
+number (common.batch_ms), which counts the card's time and not the host's
+between launches; the product, the flagship step and K3 by CUDA events
+around one call, median of the repetitions, after a warm-up.
 """
 
 from __future__ import annotations
@@ -68,16 +72,16 @@ def _input(c, w, dev, seed):
         (c, w)).astype(np.float32)).to(dev)
 
 
-def measure_copy(dev, c=C, t=T, reps=REPS) -> dict:
+def measure_copy(dev, c=C, t=T, n=5 * REPS) -> dict:
     """GB/s of R1, R2 and copy_ on [c, 2t] float32 (bytes read plus
-    written), and the ms of each."""
+    written), and the ms of each: ``n`` calls back to back over n."""
     x = _input(c, 2 * t, dev, 0)
     nbytes = 2 * x.numel() * 4
     out = {"copy_bytes": nbytes}
     for key, fn in (("serial", roofline.hbm_copy_serial),
                     ("double_buffered", roofline.hbm_copy_double_buffered),
                     ("copy_", roofline.hbm_copy_reference)):
-        ms = common.event_ms(lambda: fn(x), dev, reps)
+        ms = common.batch_ms(lambda: fn(x), dev, n)
         out[f"{key}_ms"] = ms
         out[f"{key}_GBps"] = nbytes / ms / 1e6
     return out
@@ -92,10 +96,11 @@ def measure_matmul(dev, m=MATMUL_M, reps=REPS) -> dict:
             "matmul_types": "bf16 x bf16 -> bf16, float32 accumulation"}
 
 
-def measure_atan2(dev, c=C, t=T, tile=1 << 15, reps=REPS) -> dict:
-    """G outputs/s of R3 on [c, 2t] -> [c, t], and its ms."""
+def measure_atan2(dev, c=C, t=T, tile=1 << 15, n=5 * REPS) -> dict:
+    """G outputs/s of R3 on [c, 2t] -> [c, t], and its ms: ``n`` calls
+    back to back over n."""
     x = _input(c, 2 * t, dev, 3)
-    ms = common.event_ms(lambda: roofline.atan2_halves(x, tile), dev, reps)
+    ms = common.batch_ms(lambda: roofline.atan2_halves(x, tile), dev, n)
     return {"atan2_ms": ms, "atan2_GSps": c * t / ms / 1e6}
 
 
@@ -149,9 +154,9 @@ def run(device=None, c=C, t=T, m=MATMUL_M, pll_n=PLL_N, reps=REPS,
         resident_s: float = 3.0) -> dict:
     """The roofline object on ``device`` (the card by default)."""
     dev, info = common.setup(device)
-    cp = measure_copy(dev, c, t, reps)
+    cp = measure_copy(dev, c, t, 5 * reps)
     mm = measure_matmul(dev, m, reps)
-    at = measure_atan2(dev, c, t, reps=reps)
+    at = measure_atan2(dev, c, t, n=5 * reps)
     hw = {"device": info["device"], "power_limit_w": info["power_limit_w"],
           "hbm_copy_serial_GBps": cp["serial_GBps"],
           "hbm_copy_double_buffered_GBps": cp["double_buffered_GBps"],
@@ -202,9 +207,11 @@ def run(device=None, c=C, t=T, m=MATMUL_M, pll_n=PLL_N, reps=REPS,
                  / (flag["GSps"] * 1e9)})
     return {"hardware_measured": hw, "rows": rows,
             "device": info["device"], "power_limit_w": info["power_limit_w"],
-            "method": ("rates from the port's probes on this card (CUDA "
-                       "events, median); bounds from the H100 SXM data "
-                       "sheet and from R2's measured copy rate")}
+            "method": ("rates from the port's probes on this card (the "
+                       "copies and atan2 by back-to-back calls between two "
+                       "CUDA events, the rest by CUDA events around a "
+                       "call, median); bounds from the H100 SXM data sheet "
+                       "and from R2's measured copy rate")}
 
 
 def main(argv=None) -> int:

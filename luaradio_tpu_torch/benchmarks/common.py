@@ -1,6 +1,7 @@
 """What the measurement entry points share: the device a run names, the
 card's power limit, timing that ends each trial in a synchronize, the
-median and spread of trials, and the pageable host-to-device copy rate."""
+median and spread of trials, back-to-back batches fenced once, and the
+pageable host-to-device copy rate."""
 
 from __future__ import annotations
 
@@ -99,6 +100,27 @@ def event_ms(fn, dev: torch.device, reps: int = 10, warmup: int = 3
     return statistics.median(times)
 
 
+def batch_ms(fn, dev: torch.device, n: int = 50, warmup: int = 3) -> float:
+    """Milliseconds a call over ``n`` back-to-back calls, fenced once: on
+    the card CUDA events before the first and after the last (the JAX
+    system's bench_roofline ``_timeit``), so the host's time between
+    launches hides behind the card's queue; the host clock ended by a
+    synchronize on the CPU."""
+    for _ in range(warmup):
+        fn()
+    if dev.type != "cuda":
+        return 1e3 * timed(lambda: [fn() for _ in range(n)], dev) / n
+    sync(dev)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def h2d_pageable_MBps(dev: torch.device, nbytes: int = 32 << 20,
                       k: int = 6, seed: int = 0) -> float | None:
     """Pageable host-to-device copy rate in MB/s (1e6 bytes): ``k``
@@ -131,4 +153,4 @@ def emit(rec: dict, out: str | None = None, indent=None):
 
 
 __all__ = ["device_info", "setup", "sync", "timed", "rate_trials", "spread",
-           "event_ms", "h2d_pageable_MBps", "emit"]
+           "event_ms", "batch_ms", "h2d_pageable_MBps", "emit"]

@@ -12,11 +12,12 @@ the flagship's size, C = 8 and 2 tile NT = 2^23 floats (NT = 512), checked
 the same way (one summary line) and timed: the kernel
 (ops/window.py ``window_gather``), the same gather by one PyTorch call
 (``cat`` + ``unfold`` + ``contiguous``) and R2's copy of x
-(ops/roofline.py) for the card's measured rate, each the median of
-``reps`` calls by CUDA events; the bound is the bytes read plus written
-over 3.35 TB/s (H100 SXM data sheet) and over R2's rate.  Prints one
-JSON object last (``--out`` also writes it), with the card's name and
-power limit.
+(ops/roofline.py) for the card's measured rate, each over ``5 reps``
+back-to-back calls between two CUDA events, fenced once
+(common.batch_ms, as bench_roofline times R2); the bound is the bytes
+read plus written over 3.35 TB/s (H100 SXM data sheet) and over R2's
+rate.  Prints one JSON object last (``--out`` also writes it), with the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -75,24 +76,25 @@ def check(dev, c=C, head=HEAD, tile=TILE, nt=NT, seed=0, emit=print,
 
 def measure(dev, c=C, head=HEAD, tile=TILE, nt=FLAGSHIP_NT, reps=REPS,
             seed=0) -> dict:
-    """Kernel, library and R2 ms at [c, 2 tile nt], the bytes and bounds."""
+    """Kernel, library and R2 ms at [c, 2 tile nt] (each over 5 reps
+    back-to-back calls), the bytes and bounds."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((c, 2 * tile * nt), generator=g, device=dev)
     carry = torch.randn((c, head), generator=g, device=dev)
     w = head + 2 * tile
     nbytes = 4 * (x.numel() + carry.numel() + c * nt * w)
-    ms = common.event_ms(lambda: window.window_gather(x, carry, tile), dev,
-                         reps)
-    lib_ms = common.event_ms(
+    ms = common.batch_ms(lambda: window.window_gather(x, carry, tile), dev,
+                         5 * reps)
+    lib_ms = common.batch_ms(
         lambda: torch.cat([carry, x], 1).unfold(1, w, 2 * tile).contiguous(),
-        dev, reps)
+        dev, 5 * reps)
     rec = {"shape": [c, 2 * tile * nt], "head": head, "tile": tile,
            "NT": nt, "bytes": nbytes, "ms": ms, "GBps": nbytes / ms / 1e6,
            "library_ms": lib_ms,
            "bound_ms_at_sheet": 1e3 * nbytes / SHEET_BYTES_PER_S}
     if dev.type == "cuda":
-        r2_ms = common.event_ms(
-            lambda: roofline.hbm_copy_double_buffered(x), dev, reps)
+        r2_ms = common.batch_ms(
+            lambda: roofline.hbm_copy_double_buffered(x), dev, 5 * reps)
         r2_rate = 2 * 4 * x.numel() / r2_ms * 1e3          # bytes/s
         rec.update(r2_GBps=r2_rate / 1e9,
                    bound_ms_at_r2=1e3 * nbytes / r2_rate)
@@ -111,9 +113,10 @@ def run(device=None, c=C, head=HEAD, tile=TILE, nt=NT,
     return {"device": info["device"], "power_limit_w": info["power_limit_w"],
             "ok": script["ok"] and big["ok"], "script": script,
             "flagship": {"ok": big["ok"], **timing},
-            "method": "CUDA events around one call, median of the "
-                      "repetitions; bound from the H100 SXM data sheet's "
-                      "3.35 TB/s and from R2's measured copy rate"}
+            "method": "back-to-back calls between two CUDA events, "
+                      "fenced once, over their number; bound from the H100 "
+                      "SXM data sheet's 3.35 TB/s and from R2's copy rate "
+                      "measured the same way"}
 
 
 def main(argv=None) -> int:

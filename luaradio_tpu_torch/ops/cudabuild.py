@@ -30,8 +30,10 @@ SOURCES = ("wbfm", "pll", "pll_overlap", "roofline", "window", "pll_ablate",
            "wbfm_proto")
 #: measurement builds: name -> (source, extra nvcc flags).  wbfm_parts
 #: holds K1's discriminator and FIR halves alone (chip_smoke.py,
-#: scratch/wbfm_ab.py)
-PROBES = {"wbfm_parts": ("wbfm", ("-DLR_WBFM_PARTS",))}
+#: scratch/wbfm_ab.py); roofline_sweep every instance of the copies' ring
+#: that scratch/roofline_ab.py sweeps (not built by chip_smoke.py)
+PROBES = {"wbfm_parts": ("wbfm", ("-DLR_WBFM_PARTS",)),
+          "roofline_sweep": ("roofline", ("-DLR_ROOFLINE_SWEEP",))}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

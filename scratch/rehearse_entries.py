@@ -5,8 +5,8 @@ on the CPU at a small size (no card, no nvcc):
     python scratch/rehearse_entries.py [roofline] [entries] [bench] [blocks]
 
 The kernel wrappers take their twins (a CPU tensor) and are wrapped to
-count their calls as launches; CUDA events, R2's trace and the pageable
-copy rate are stubbed; sizes are cut.  It checks control flow, shapes and
+count their calls as launches; CUDA events and graphs, R2's trace, the
+card's SM count and the pageable copy rate are stubbed; sizes are cut.  It checks control flow, shapes and
 the phases' own assertions, not the card: no number it prints is a
 device's.  About 35 s for all four.
 """
@@ -16,6 +16,7 @@ import os
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -45,9 +46,13 @@ for name in ("hbm_copy_serial", "hbm_copy_double_buffered", "atan2_halves"):
 cs.wbfm.wbfm_mono = flagship.wbfm_mono = counting(cs.wbfm.wbfm_mono)
 roofline.ring_ctas = lambda: 4
 roofline.ring_trace = lambda x: np.tile(
-    np.array([[1, 5, 3, 6]]), (-(-x.numel() * 4 // roofline.SLAB), 1))
+    np.array([[1, 5, 3, 6, 0]]),
+    (roofline.n_slabs(x.numel() * 4, roofline.R2.stage_bytes), 1))
+torch.cuda.get_device_properties = lambda dev: types.SimpleNamespace(
+    multi_processor_count=2)
 common.h2d_pageable_MBps = lambda dev, **kw: 1000.0
 cs.median_ms = lambda fn, reps=cs.REPS: (fn(), 1.0)[1]
+cs.graph_ms = lambda fn, n=20, reps=10: (fn(), 1.0)[1]
 cs.ROOF_W = 1 << 16
 cs.proofline.run = functools.partial(
     bench_roofline.run, c=2, t=1 << 15, m=64, pll_n=1 << 10, reps=2,
