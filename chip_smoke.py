@@ -82,8 +82,9 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    the graph run again with the twin in the kernel's place, whose L-R
    (the part the PLL demodulates) must match within 2 LSB.  Then the
    kernel held against its twin on a 2^16-sample chunk, timed there
-   beside the twin, K3 and its own launch alone, whose time a step stands
-   beside a probe of the step's dependent chain;
+   beside the twin, K3 and its own launch alone (a launch, and device
+   time by CUDA-graph replay), whose device time a step stands beside a
+   probe of the step's dependent chain;
 10. am: rx_am --synchronous through the CLI over an 8 s AM capture (0.5 s
     of noise, then a carrier at the tuned frequency modulated 50 % by a
     1 kHz tone at ~30 dB SNR), where K3 must launch (multiplier 1, the
@@ -154,8 +155,10 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     interleave, deinterleave, nop, the real and raw file sources) is held
     against the same graph on the CPU; each PLL row's first K3 launch and
     first overlap scan, recorded on the row's 2^22-sample inputs, against
-    their twins, and K3 timed alone on the noise-fed row's (CUDA events,
-    beside its bound and chain floor);
+    their twins, K3 timed alone on the noise-fed row's (CUDA events,
+    beside its bound and chain floor) and the scan's launch alone on the
+    acquiring row's (a launch and device time, ns a step beside the chain
+    probe at the row's constants);
 20. fir-fft: fir_fft and the direct cuDNN FIR timed for a 129-tap real
     FIR on [64, 65 536] and [1, 2^22];
 21. roundtrip: the FM self test module on the card (tone within 50 Hz),
@@ -1279,7 +1282,8 @@ def phase_overlap_hold(dev, gen, chunk):
     so valid flags must be equal and outputs and state agree within 1e-6
     (0 expected).  Then kernel, twin and K3 timed on the same chunk, and
     the scan's launch alone (without the torch set-up and chaining
-    around it) for its time a serial step.  The byte and operation bound
+    around it), a launch and device time (CUDA-graph replay), the device
+    time for its time a serial step.  The byte and operation bound
     does not bind: each segment is a chain of W+L dependent steps.
     Returns the kernels-line entry."""
     params = stereo_pll_params()
@@ -1306,8 +1310,10 @@ def phase_overlap_hold(dev, gen, chunk):
     xb = x[None]                             # the scan's [rows, N] form
     init = pll_overlap._initial_states(xb, state, s, lseg, warm)
     consts = tuple(float(np.float32(v)) for v in (*params, 2))
-    scan_ms = median_ms(lambda: pll_overlap._scan_kernel(
+    scan_launch_ms = median_ms(lambda: pll_overlap._scan_kernel(
         xb, init, consts, lseg, warm), reps=5)
+    scan_ms = graph_ms(lambda: pll_overlap._scan_kernel(
+        xb, init, consts, lseg, warm), 5, 3)
     nbytes = n * 8 + 5 * s * 4 + 3 * n * 4 + 10 * s * 4
     ops = steps * s * OVERLAP_OPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
@@ -1321,8 +1327,9 @@ def phase_overlap_hold(dev, gen, chunk):
                    f"(host clock, one run), K3 on the same chunk "
                    f"{k3_ms:.3f} ms (median of 5; its twin "
                    f"{k3_plain_ms:.1f} ms, one run); the scan's launch alone "
-                   f"{scan_ms:.3f} ms, {steps} serial steps a segment, "
-                   f"{scan_ns:.1f} ns a step")
+                   f"{scan_launch_ms:.3f} ms a launch, {scan_ms:.4f} ms "
+                   f"device, {steps} serial steps a segment, "
+                   f"{scan_ns:.1f} ns a step (device)")
     log("overlap", f"chain probe (the step's dependent chain through the "
                    f"VCO, one thread): {probe_ns:.1f} ns and "
                    f"{cycles / probe_steps:.0f} SM cycles a step; the scan's "
@@ -1335,7 +1342,8 @@ def phase_overlap_hold(dev, gen, chunk):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "bound_binds": False,
             "k3_same_chunk_ms": k3_ms, "k3_same_chunk_plain_ms": k3_plain_ms,
-            "scan_ms": scan_ms,
+            "scan_ms": scan_ms, "scan_launch_ms": scan_launch_ms,
+            "ring": pll_overlap.shipped_ring(),
             "serial_steps": steps, "ns_per_step": scan_ns,
             "chain_floor_ns_per_step": probe_ns,
             "floor_ratio": scan_ns / probe_ns}
@@ -2334,7 +2342,10 @@ def _k3_twin(call, rows):
 
 
 def _scan_cols(out, lo, hi):
-    return tuple(v[:, lo:hi] for v in out)
+    """Segments lo..hi of a scan's result: rows of o_r, o_i, o_e [C S, L],
+    columns of the snapshot and exit state [5, C S]."""
+    return tuple(v[lo:hi] for v in out[:3]) + tuple(v[:, lo:hi]
+                                                    for v in out[3:])
 
 
 def _scan_rows(call):
@@ -2948,7 +2959,7 @@ def phase_blocks(tmp, dev, smi, ns_step):
     blk.initialize()
     params = (blk._alpha, blk._beta, blk._freq_min, blk._freq_max)
     k3_err = scan_err = 0.0
-    k3_alone = None
+    k3_alone = scan_alone = None
     for name, k3_calls, scan_calls in pll_calls:
         if k3_calls:
             k3_err = max(k3_err, hold_k3_launch(name, k3_calls[0], params))
@@ -2956,9 +2967,11 @@ def phase_blocks(tmp, dev, smi, ns_step):
                 k3_alone = time_k3_alone(k3_calls[0], params, ns_step)
         if scan_calls:
             scan_err = max(scan_err, hold_scan_launch(name, scan_calls[0]))
+            scan_alone = time_scan_alone(name, scan_calls[0])
     return {"rows": out, "k3_launches": paths_launch["k3"],
             "scan_launches": paths_launch["scan"], "k3_err": k3_err,
-            "scan_err": scan_err, "k3_alone": k3_alone}
+            "scan_err": scan_err, "k3_alone": k3_alone,
+            "scan_alone": scan_alone}
 
 
 def time_k3_alone(call, params, ns_step):
@@ -2980,6 +2993,40 @@ def time_k3_alone(call, params, ns_step):
                   f"floor {floor_ms:.2f} ms: {ms / floor_ms:.3f}x it")
     return {"samples": n, "ms": ms, "bound_ms": bound_ms,
             "chain_floor_ms": floor_ms, "floor_ratio": ms / floor_ms}
+
+
+def time_scan_alone(row, call):
+    """The overlap scan's launch alone (pll_overlap._scan_kernel, without
+    the torch set-up and chaining) on a PLL row's first recorded 2^22
+    chunk, at the row's plan and constants: a launch (CUDA events, median
+    of 5) and device time (CUDA-graph replay), the device time a serial
+    step beside the chain probe run at the row's constants."""
+    (_, x, state, alpha, beta, fmin, fmax, mult, lseg, warm, *_), _ = call
+    n = x.shape[0]
+    s, steps = n // lseg, warm + lseg
+    xb = x[None]
+    init = pll_overlap._initial_states(xb, state, s, lseg, warm)
+    consts = tuple(float(np.float32(v))
+                   for v in (alpha, beta, fmin, fmax, mult))
+    launch_ms = median_ms(lambda: pll_overlap._scan_kernel(
+        xb, init, consts, lseg, warm), reps=5)
+    dev_ms = graph_ms(lambda: pll_overlap._scan_kernel(
+        xb, init, consts, lseg, warm), 5, 3)
+    pll_overlap.chain_probe(64, x.device, alpha, beta, fmin, fmax)
+    probe_steps = 1 << 14
+    probe_ms, _ = pll_overlap.chain_probe(probe_steps, x.device, alpha,
+                                          beta, fmin, fmax)
+    probe_ns = probe_ms * 1e6 / probe_steps
+    ns = dev_ms * 1e6 / steps
+    log("blocks", f"{row}: the scan's launch alone on the row's first chunk "
+                  f"[{n} samples, {s} segments of {lseg} after {warm} "
+                  f"warm-up steps]: {launch_ms:.3f} ms a launch, "
+                  f"{dev_ms:.4f} ms device, {ns:.1f} ns a step; chain probe "
+                  f"{probe_ns:.1f} ns a step: {ns / probe_ns:.3f}x it")
+    return {"samples": n, "segments": s, "lseg": lseg, "warm": warm,
+            "launch_ms": launch_ms, "graph_ms": dev_ms, "ns_per_step": ns,
+            "chain_floor_ns_per_step": probe_ns,
+            "floor_ratio": ns / probe_ns}
 
 
 def hold_k3_launch(row, call, params):
@@ -5041,6 +5088,7 @@ def main(argv):
         "batched": {c: {k: v for k, v in r.items() if k.startswith("scan")}
                     for c, r in timing.items()}}
     overlap["max_abs_err"] = max(overlap["max_abs_err"], st["scan_err"])
+    overlap["bank_264_vs_one_row"] = timing[BATCH_ROWS[-1]]["scan_ratio"]
     classes = phase_bank_classes(dev, gen)
     with tempfile.TemporaryDirectory() as tmp:
         host_sps = phase_bank_host(tmp, dev)
@@ -5057,7 +5105,9 @@ def main(argv):
                          "alone_2_22": blocks["k3_alone"]}
     k3["max_abs_err"] = max(k3["max_abs_err"], blocks["k3_err"])
     overlap["blocks_path"] = {"launches": blocks["scan_launches"],
-                              "max_abs_err": blocks["scan_err"]}
+                              "max_abs_err": blocks["scan_err"],
+                              "alone_2_22": blocks["scan_alone"]}
+    overlap["floor_ratio_2_22"] = blocks["scan_alone"]["floor_ratio"]
     overlap["max_abs_err"] = max(overlap["max_abs_err"], blocks["scan_err"])
     fir_fft = phase_fir_fft(dev, gen, smi)
     with tempfile.TemporaryDirectory() as tmp:

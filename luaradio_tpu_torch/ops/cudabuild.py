@@ -31,9 +31,12 @@ SOURCES = ("wbfm", "pll", "pll_overlap", "roofline", "window", "pll_ablate",
 #: measurement builds: name -> (source, extra nvcc flags).  wbfm_parts
 #: holds K1's discriminator and FIR halves alone (chip_smoke.py,
 #: scratch/wbfm_ab.py); roofline_sweep every instance of the copies' ring
-#: that scratch/roofline_ab.py sweeps (not built by chip_smoke.py)
+#: that scratch/roofline_ab.py sweeps, pll_overlap_sweep every instance of
+#: the scan's rings and its pipelined one-thread variant that
+#: scratch/scan_ab.py sweeps (neither built by chip_smoke.py)
 PROBES = {"wbfm_parts": ("wbfm", ("-DLR_WBFM_PARTS",)),
-          "roofline_sweep": ("roofline", ("-DLR_ROOFLINE_SWEEP",))}
+          "roofline_sweep": ("roofline", ("-DLR_ROOFLINE_SWEEP",)),
+          "pll_overlap_sweep": ("pll_overlap", ("-DLR_SCAN_SWEEP",))}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -14,11 +14,13 @@ caller runs the exact sequential kernel instead (ops/pll_linear.py
 pll_hybrid).
 
 The scan runs as one CUDA kernel launch for CUDA tensors (csrc/
-pll_overlap.cu, one thread per segment; the port's own kernel for the JAX
-package's lax.scan) and as its plain twin, a Python loop over the steps of
-[S]-wide tensors, for CPU tensors; any other device raises.  The set-up,
-the boundary check and the chaining are torch on both paths.  A bank of
-C rows [C, N] runs all its C x S segments in one launch, and the boundary
+pll_overlap.cu, the port's own kernel for the JAX package's lax.scan:
+copy, walker and oscillator warps over shared-memory rings, a lane a
+segment) and as its plain twin, a Python loop over the steps of [S]-wide
+tensors, for CPU tensors; any other device raises.  Both give the
+outputs [C*S, L], each segment's L samples contiguous.  The set-up, the
+boundary check and the chaining are torch on both paths.  A bank of C
+rows [C, N] runs all its C x S segments in one launch, and the boundary
 check, the chaining and ``valid`` are per row.
 ``pll_overlap_discard.launches`` counts kernel launches and
 ``pll_overlap_discard.rows`` the rows they carried.
@@ -44,7 +46,20 @@ def _lib():
         lib.lr_pll_overlap_scan.restype = ctypes.c_int
         lib.lr_overlap_chain_probe.argtypes = [_I] + [_F] * 4 + [_VP] * 3
         lib.lr_overlap_chain_probe.restype = ctypes.c_int
+        lib.lr_pll_overlap_ring.argtypes = [ctypes.POINTER(_I)]
+        lib.lr_pll_overlap_ring.restype = None
     return lib
+
+
+def shipped_ring() -> dict:
+    """The built kernel's ring: segments a block ``g``, steps a stage
+    ``t``, stages ``p``, ``store`` (0: bulk copies from shared memory, 1:
+    straight to global memory) and ``zero_warm`` (1: steps with no sample
+    walk zeros; 0: samples that exist, csrc/pll_overlap.cu stage_base).
+    Needs the CUDA build."""
+    out = (_I * 5)()
+    _lib().lr_pll_overlap_ring(out)
+    return dict(zip(("g", "t", "p", "store", "zero_warm"), out))
 
 
 def plan_overlap(n: int, alpha: float, decay: float = 12.0,
@@ -112,8 +127,9 @@ def _initial_states(x, state, s: int, lseg: int, warm: int):
 
 def _scan_reference(x, init, consts, lseg: int, warm: int):
     """The batched scan in plain PyTorch, one Python step at a time over
-    [C*S]-wide tensors.  Returns o_r, o_i, o_e [L, C*S], the state
-    entering step W and the exit state, each [5, C*S]."""
+    [C*S]-wide tensors.  Returns o_r, o_i, o_e [C*S, L] (segment g's
+    outputs in row g, as the kernel gives them), the state entering step
+    W and the exit state, each [5, C*S]."""
     alpha, beta, fmin, fmax, multf = consts
     rows, n = x.shape
     s = n // lseg
@@ -161,7 +177,8 @@ def _scan_reference(x, init, consts, lseg: int, warm: int):
             mr = torch.where(not0, mr2 * gm, mr)
             mi = torch.where(not0, mi2 * gm, mi)
             fr = torch.where(not0, f3, fr)
-    return o_r, o_i, o_e, snap, torch.stack([vr, vi, mr, mi, fr])
+    return (o_r.t().contiguous(), o_i.t().contiguous(), o_e.t().contiguous(),
+            snap, torch.stack([vr, vi, mr, mi, fr]))
 
 
 def _scan_kernel(x, init, consts, lseg: int, warm: int):
@@ -169,7 +186,7 @@ def _scan_kernel(x, init, consts, lseg: int, warm: int):
     segment of every row; returns as :func:`_scan_reference`."""
     rows, n = x.shape
     width = init.shape[1]
-    o_r = torch.empty(lseg, width, dtype=torch.float32, device=x.device)
+    o_r = torch.empty(width, lseg, dtype=torch.float32, device=x.device)
     o_i = torch.empty_like(o_r)
     o_e = torch.empty_like(o_r)
     snap = torch.empty_like(init)
@@ -226,11 +243,10 @@ def _run(scan, x, state, alpha, beta, fmin, fmax, mult, lseg, warm,
     delta = _cumprod(ratio)
     delta = delta / torch.clamp(delta.abs(), min=1e-30)
 
-    # [L, C*S] -> [C, S, L] -> [C, N]
-    out = torch.complex(o_r, o_i).reshape(lseg, rows, s) * delta[None]
-    out = out.permute(1, 2, 0).reshape(rows, n).contiguous()
-    err = o_e.reshape(lseg, rows, s).permute(1, 2, 0).reshape(rows, n) \
-        .contiguous()
+    # [C*S, L] -> [C, S, L] -> [C, N]: reshapes, no copies
+    out = (torch.complex(o_r, o_i).reshape(rows, s, lseg)
+           * delta[..., None]).reshape(rows, n)
+    err = o_e.reshape(rows, n)
     m_last = exit_m[:, -1] * delta[:, -1]
     new_state = (torch.atan2(vi[:, -1], vr[:, -1]),
                  torch.atan2(m_last.imag, m_last.real), fr[:, -1])
@@ -316,4 +332,4 @@ def chain_probe(steps: int, device, alpha, beta, fmin,
 
 
 __all__ = ["plan_overlap", "pll_overlap_discard",
-           "pll_overlap_discard_reference", "chain_probe"]
+           "pll_overlap_discard_reference", "chain_probe", "shipped_ring"]
