@@ -31,15 +31,19 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
    the script's shape [8, 2^16] and the flagship's [8, 2^23] (head 512,
    tile 8192) and on two ragged shapes, the PLL ablations S7
    (csrc/pll_ablate.cu) over 4096 samples for its four variants within
-   1e-6, the flagship taken apart S4 (csrc/wbfm_proto.cu) at [8, 2^18]
-   for every variant of its entry point (the script's five, every other
-   precision, the four stages) within 2e-5 * scale; then their entry
-   points (benchmarks/dma_window.py, pll_ablate.py, wbfm_proto.py) once,
-   launches counted, records printed and checked (S8 OK, S4's fp32 and
-   split variants within 2e-5 of K1), their times, S7's chain floors and
-   S8's library call read into the kernels line beside S4's twin timed
-   at [8, 2^22] and S8's bound at R2's rate (both timed back to back by
-   dma_window, so at R2's device rate);
+   1e-6, the flagship taken apart S4 (csrc/wbfm_proto.cu, a persistent
+   ring) at its entry point's [8, 2^22] for every variant (the script's
+   five, every other precision, the four stages: dma_only, deint_only
+   and no_fir bit-equal, the FIR stages within 2e-5 * scale), at
+   PROBE_S4_SHAPES and at the ring's S4_EDGES, the library's plan equal
+   to the Python mirror's at each; then their entry points
+   (benchmarks/dma_window.py, pll_ablate.py, wbfm_proto.py) once, launches counted, records printed and checked
+   (S8 OK, S4's fp32 and split variants within 2e-5 of K1), their times,
+   S7's chain floors and S8's library call read into the kernels line
+   beside S4's twin timed at [8, 2^22], S4's and K1's device times, S4's
+   issue-slot bound from the SASS of its discriminator loop, and S8's
+   bound at R2's rate (both timed back to back by dma_window, so at R2's
+   device rate);
 3. K1 / K2: each kernel at the flagship's full width (8 channels x 4 194 304
    samples, D = 8, K = 640), on a ragged chunk, on an input 8 bytes off a
    16-byte boundary and under a compact plan (K = 16 384), held against
@@ -4536,6 +4540,11 @@ PROBE_S4_SHAPES = ((256, 4, 2048, 128, "sel3", "split22"),
                    (128, 5, 1280, 128, "sel2", "sel3"),
                    (128, 8, 768, 32, "highest", "split22"),
                    (128, 8, 2048, 256, "sel3cat", "two"))
+#: S4's ring at its edges (label, C, K, D, tile, tiles a row, x's offset
+#: in floats, deint, fir, stage) on the card's grid (ops/wbfm_proto.py
+#: edge_shapes), each against the twin at the same tolerances
+S4_EDGES = tuple((label, *v) for label, v in
+                 wbfm_proto.edge_shapes().items())
 PROBE_REPS = 3
 
 
@@ -4622,33 +4631,79 @@ def hold_pll_ablate(dev, gen):
     return err, plain
 
 
+def _s4_hold(label, got, exp, st, gain=1.0):
+    """|kernel - twin| of one S4 call, raising unless dma_only, deint_only
+    and no_fir are bit-equal and the FIR stages within 2e-5 * scale.
+    Returns (error, scale)."""
+    torch.cuda.synchronize()
+    if got.shape != exp.shape:
+        raise AssertionError(f"wbfm_proto {label}: {tuple(got.shape)} vs "
+                             f"{tuple(exp.shape)}")
+    scale = max(1.0, float(exp.abs().max()))
+    e = float((got - exp).abs().max())
+    if st in ("dma_only", "deint_only", "no_fir"):
+        ok = torch.equal(got, exp)
+    else:
+        ok = e <= 2e-5 * scale
+    if not ok:
+        raise AssertionError(f"wbfm_proto {label} ({st}, inv_gain {gain}): "
+                             f"|kernel - twin| {e} (scale {scale})")
+    return e, scale
+
+
+def _s4_plan_holds(c, t, k, d, tile, dp, fp, st):
+    """The library's plan (lr_wbfm_proto_plan) equals the Python mirror's
+    (ops/wbfm_proto.py ring_plan) for one launch."""
+    if st == "dma_only":
+        return
+    lib = wbfm_proto._lib()
+    lib.lr_wbfm_proto_plan.argtypes = [ctypes.c_longlong, ctypes.c_longlong,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)]
+    v = (ctypes.c_int * 16)()
+    deint = wbfm_proto._HALVES if st == "no_deint" else \
+        wbfm_proto._DEINT.get(dp, 0)
+    code = lib.lr_wbfm_proto_plan(c, t, k, d, tile, wbfm_proto._STAGE[st],
+                                  deint, wbfm_proto._FIR.get(fp, 0), v)
+    if code:
+        raise AssertionError(f"wbfm_proto plan: code {code}")
+    m = wbfm_proto.ring_plan(c, t, k, d, tile, st, dp, fp)
+    want = [m["chunk"], m["ss"], m["q_need"], m["stages"], m["stage_floats"],
+            m["reg_cap"], m["rc"], m["rce"], m["ext"], m["item_cols"],
+            m["plane_bytes"], m["smem"], wbfm_proto.RING.ctas_per_sm,
+            m["warps"], int(m["band"]), m["items"]]
+    if list(v) != want:
+        raise AssertionError(f"wbfm_proto plan at {(c, t, k, d, tile, st)}: "
+                             f"library {list(v)}, mirror {want}")
+
+
 def hold_wbfm_proto(dev, gen):
     """S4 against its twin for every variant of its entry point (the
     script's, every precision, the four stages) at the entry point's own
-    (C, T), tiles and inputs, then on a random carry at inv_gain 0.7, each
-    within 2e-5 * scale; then at PROBE_S4_SHAPES.  Returns (largest
-    |kernel - twin|, largest |kernel - twin| over scale)."""
+    (C, T), tiles and inputs, then on a random carry at inv_gain 0.7; then
+    at PROBE_S4_SHAPES and the ring's S4_EDGES (dma_only, deint_only and
+    no_fir bit-equal, the FIR stages within 2e-5 * scale), the library's
+    plan equal to the mirror's at each shape.  Returns (largest |kernel -
+    twin|, largest |kernel - twin| over scale)."""
     x, carry, taps = pbench_s4.inputs(dev)
     c, t = x.shape[0], x.shape[1] // 2
     rand = torch.randn(carry.shape, generator=gen, device=dev)
     worst, worst_scaled = 0.0, 0.0
     for name, dp, fp, st, mul in pbench_s4.VARIANTS:
         ev, sv = 0.0, 0.0
+        _s4_plan_holds(c, t, taps.shape[0], pbench_s4.D, mul * pbench_s4.TILE,
+                       dp, fp, st)
         for cr, gain in ((carry, 1.0), (rand, 0.7)):
             args = (cr, x, taps, pbench_s4.D, gain, mul * pbench_s4.TILE, 128,
                     dp, fp, st)
             gc, got = wbfm_proto.wbfm_proto(*args)
             ec, exp = wbfm_proto.wbfm_proto_reference(*args)
             torch.cuda.synchronize()
-            if got.shape != exp.shape or not torch.equal(gc, ec):
-                raise AssertionError(f"wbfm_proto {name}: {tuple(got.shape)}"
-                                     f" vs {tuple(exp.shape)}, or the carry "
-                                     f"differs")
-            scale = max(1.0, float(exp.abs().max()))
-            e = float((got - exp).abs().max())
-            if not e <= 2e-5 * scale:
-                raise AssertionError(f"wbfm_proto {name} (inv_gain {gain}): "
-                                     f"|kernel - twin| {e} > 2e-5 * {scale}")
+            if not torch.equal(gc, ec):
+                raise AssertionError(f"wbfm_proto {name}: the carry differs")
+            e, scale = _s4_hold(name, got, exp, st, gain)
             ev, sv = max(ev, e), max(sv, scale)
             worst, worst_scaled = max(worst, e), max(worst_scaled, e / scale)
         log("probes", f"wbfm_proto (S4) {name} ({dp}, {fp}, {st}) [{c} x "
@@ -4660,18 +4715,30 @@ def hold_wbfm_proto(dev, gen):
         xs = torch.randn((2, 2 * 3 * tile), generator=gen, device=dev)
         cs = torch.randn((2, 2 * k), generator=gen, device=dev)
         hs = torch.randn(k, generator=gen, device=dev) / k
+        _s4_plan_holds(2, 3 * tile, k, d, tile, dp, fp, "full")
         args = (cs, xs, hs, d, 1.0, tile, block, dp, fp, "full")
         got = wbfm_proto.wbfm_proto(*args)[1]
         exp = wbfm_proto.wbfm_proto_reference(*args)[1]
-        scale = max(1.0, float(exp.abs().max()))
-        e = float((got - exp).abs().max())
-        if got.shape != exp.shape or not e <= 2e-5 * scale:
-            raise AssertionError(f"wbfm_proto K {k} D {d} tile {tile} block "
-                                 f"{block} ({dp}, {fp}): |kernel - twin| "
-                                 f"{e} > 2e-5 * {scale}")
+        e, scale = _s4_hold(f"K {k} D {d} tile {tile} block {block} ({dp}, "
+                            f"{fp})", got, exp, "full")
         worst, worst_scaled = max(worst, e), max(worst_scaled, e / scale)
     log("probes", f"wbfm_proto (S4) at {len(PROBE_S4_SHAPES)} other (K, D, "
                   f"tile, block): within 2e-5 * scale of its twin")
+    for label, c, k, d, tile, nt, off, dp, fp, st in S4_EDGES:
+        buf = torch.randn(c * 2 * tile * nt + off, generator=gen, device=dev)
+        xs = buf[off:].view(c, 2 * tile * nt)
+        cs = torch.randn((c, 2 * k), generator=gen, device=dev)
+        hs = torch.randn(k, generator=gen, device=dev) / k
+        _s4_plan_holds(c, tile * nt, k, d, tile, dp, fp, st)
+        block = 128 if (tile // d) % 128 == 0 else 32
+        args = (cs, xs, hs, d, 1.0, tile, block, dp, fp, st)
+        got = wbfm_proto.wbfm_proto(*args)[1]
+        exp = wbfm_proto.wbfm_proto_reference(*args)[1]
+        e, scale = _s4_hold(label, got, exp, st)
+        worst, worst_scaled = max(worst, e), max(worst_scaled, e / scale)
+    log("probes", f"wbfm_proto (S4) at the ring's {len(S4_EDGES)} edge "
+                  f"shapes: held against its twin; the library's plan equal "
+                  f"to the mirror's at every shape held")
     torch.cuda.empty_cache()
     return worst, worst_scaled
 
@@ -4775,7 +4842,15 @@ def phase_probes(dev, gen, smi):
     args = (carry, x, taps, 8, 1.0, mul * s4["tile"], 128, dp, fp, st)
     plain_ms = median_ms(lambda: wbfm_proto.wbfm_proto_reference(*args),
                          reps=PROBE_REPS)
-    del x, carry
+    # device time (CUDA-graph replay) of the variant and of K1 on the same
+    # input; launches made here are not the entry point's
+    dev_ms = graph_ms(lambda: wbfm_proto.wbfm_proto(*args), 5, 5)
+    kcarry = torch.zeros((c, taps.shape[0]), dtype=torch.complex64,
+                         device=dev)
+    k1_dev_ms = graph_ms(lambda: wbfm.wbfm_mono(kcarry, x, taps, 8, 1.0), 5,
+                         5)
+    issue = pbench_s4.sass_issue_estimate(c, t)
+    del x, carry, kcarry
     torch.cuda.empty_cache()
     k = len(pbench_s4.proto_taps())
     nbytes = c * t * 8 + 2 * c * k * 4 * 2 + k * 4 + c * t // 8 * 4
@@ -4790,14 +4865,25 @@ def phase_probes(dev, gen, smi):
            "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None, "variant": name, "shape": [c, t],
+           "device_ms": dev_ms, "k1_device_ms": k1_dev_ms,
+           "issue_bound_ms": issue["issue_bound_ms"],
+           "issue_instructions_a_sample": issue["instructions_a_sample"],
+           "issue_clock_mhz": issue["clock_mhz"],
+           "launch_ms": s4[f"{name}_launch_ms"],
            "k1_ms": s4["prod_ms"],
            "variants_ms": {v[0]: s4[f"{v[0]}_ms"] for v in pbench_s4.VARIANTS},
            "rel_err_vs_k1": {v[0]: s4[f"{v[0]}_rel_err"]
                              for v in pbench_s4.VARIANTS if v[3] == "full"}}
-    log("probes", f"wbfm_proto {name} [{c} x {t}]: {s4e['ms']:.4f} ms, "
-                  f"twin {plain_ms:.4f} ms, K1 {s4['prod_ms']:.4f} ms, bound "
-                  f"{s4e['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 "
-                  f"TB/s; {ops / 1e9:.2f} Gop at 67 TFLOP/s); holds "
+    log("probes", f"wbfm_proto {name} [{c} x {t}]: {s4e['ms']:.4f} ms "
+                  f"back to back, {dev_ms:.4f} ms device, "
+                  f"{s4e['launch_ms']:.4f} ms a launch; twin {plain_ms:.4f} "
+                  f"ms; K1 {s4['prod_ms']:.4f} ms back to back, "
+                  f"{k1_dev_ms:.4f} ms device; bound {s4e['bound_ms']:.4f} "
+                  f"ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s; {ops / 1e9:.2f} "
+                  f"Gop at 67 TFLOP/s), issue slots "
+                  f"{issue['issue_bound_ms']:.4f} ms "
+                  f"({issue['instructions_a_sample']:.0f} instructions a "
+                  f"sample at {issue['clock_mhz']:.0f} MHz); holds "
                   f"{t_hold:.1f} s, phase {time.monotonic() - t_start:.1f} "
                   f"s; {smi}")
     torch.cuda.empty_cache()

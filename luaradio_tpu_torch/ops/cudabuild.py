@@ -33,10 +33,13 @@ SOURCES = ("wbfm", "pll", "pll_overlap", "roofline", "window", "pll_ablate",
 #: scratch/wbfm_ab.py); roofline_sweep every instance of the copies' ring
 #: that scratch/roofline_ab.py sweeps, pll_overlap_sweep every instance of
 #: the scan's rings and its pipelined one-thread variant that
-#: scratch/scan_ab.py sweeps (neither built by chip_smoke.py)
+#: scratch/scan_ab.py sweeps, wbfm_proto_sweep every point of S4's ring
+#: (and the Hopper atan2) that scratch/wbfm_proto_ab.py sweeps (none of
+#: the three built by chip_smoke.py)
 PROBES = {"wbfm_parts": ("wbfm", ("-DLR_WBFM_PARTS",)),
           "roofline_sweep": ("roofline", ("-DLR_ROOFLINE_SWEEP",)),
-          "pll_overlap_sweep": ("pll_overlap", ("-DLR_SCAN_SWEEP",))}
+          "pll_overlap_sweep": ("pll_overlap", ("-DLR_SCAN_SWEEP",)),
+          "wbfm_proto_sweep": ("wbfm_proto", ("-DLR_S4_SWEEP",))}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -44,6 +44,8 @@ on the CUDA cores.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import random
 
 import numpy as np
 import torch
@@ -247,5 +249,492 @@ def wbfm_proto(carry: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
 wbfm_proto.launches = 0
 
 
+# --- the ring's plan and protocol, mirrored (csrc/wbfm_proto.cu) ---------
+
+
+@dataclasses.dataclass(frozen=True)
+class Ring:
+    """S4's ring constants (csrc/wbfm_proto.cu kChunk, kStages,
+    kCtasPerSm, kWarps, kClaimed, kAtan, kUnroll): the atan2 is 0 for
+    libdevice atan2f, 1 the Hopper polynomial, 3 atan2f's fast path
+    without its branches."""
+
+    chunk: int
+    stages: int
+    ctas_per_sm: int
+    warps: int
+    claimed: bool
+    atan: int
+    unroll: int
+
+
+#: the shipped constants, the winners of scratch/wbfm_proto_ab.py's sweep
+RING = Ring(512, 2, 2, 8, False, 3, 2)
+#: SMs of an H100 SXM, the mirror's default
+SMS = 132
+#: a CTA's dynamic shared memory at most, an SM's (1 KB a CTA reserved),
+#: the head of barriers and infos before the stages
+SMEM_CTA, SMEM_SM, HEADER = 227 * 1024, 228 * 1024, 256
+#: terms (m, h) of the FIR codes
+_MT, _HT = (1, 1, 3, 2, 2), (1, 1, 1, 1, 2)
+_KIND = {"deint_only": 1, "no_fir": 2, "full": 3, "no_deint": 3}
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def _geo(kind, per, k, d, halves, mt, ht, band, chunk, stages):
+    """make_geo: the plan's sizes at `chunk`, and its shared memory in
+    bytes or None where it does not fit a CTA."""
+    u = (k + d - 1) // d
+    ks = (u + 7 + 15) // 16
+    u4 = _round_up(u, 4)
+    g = {"per": per, "chunk": chunk, "stages": stages, "u": u, "ks": ks,
+         "u4": u4,
+         "pw": 16 * ks + 8, "band": band, "halves": halves,
+         "q_need": (per - 1) * d + k if kind == 3 else per,
+         "rc": 0, "rce": 0, "ext": 0, "item_cols": 0}
+    extra = 0 if kind == 1 else 1
+    plane = taps = 0
+    if kind == 3:
+        g["rc"] = 2 * chunk + _round_up(u + 16 * ks, 128) + 128
+        g["ext"] = max(16 * ks - 8, u4)
+        g["rce"] = (_round_up(g["rc"] + g["ext"] - 8, 64) + 8 if band else
+                    _round_up(g["rc"] + g["ext"] - 4, 32) + 4)
+        g["item_cols"] = _round_up(-(-per // chunk) * chunk + 16 * ks, 128)
+        plane = _round_up(mt * d * g["rce"] * (2 if band else 4), 16)
+        taps = ht * d * g["pw"] * 4 if band else ht * d * u4 * 4
+    g["plane_bytes"] = plane
+    first = min(g["q_need"], (chunk - 1) * d + k) if kind == 3 else 0
+    for ss in (max(first, chunk * d) if kind == 3 else chunk * d,
+               chunk * d):
+        g["ss"] = ss
+        g["reg_cap"] = (_round_up(ss + extra + 3, 4) if halves else
+                        _round_up(2 * (ss + extra) + 3, 4))
+        g["stage_floats"] = 2 * g["reg_cap"] if halves else g["reg_cap"]
+        smem = HEADER + stages * g["stage_floats"] * 4 + plane + taps
+        if smem <= SMEM_CTA:
+            return g, smem
+    return g, None
+
+
+def ring_plan(c: int, t: int, k: int, d: int, tile: int, stage: str,
+              deint_prec: str = "highest", fir_prec: str = "highest",
+              ring: Ring = RING, sms: int = SMS) -> dict:
+    """The kernel's plan for a launch (csrc/wbfm_proto.cu make_geo,
+    fit_geo, launch_as; lr_wbfm_proto_plan returns the same numbers on the
+    card): the chunk (halved from ring.chunk until ring.ctas_per_sm CTAs
+    of an SM fit), the m values a piece at most (ss), the m values an
+    item needs (q_need), the stage and region floats, the planes' ring
+    (rc columns, rows of rce, the first ext mirrored, item_cols an item),
+    the dynamic shared memory, the band or the CUDA cores, the items and
+    the grid.  Raises where no chunk fits."""
+    kind = _KIND[stage]
+    fir = _FIR.get(fir_prec, 0)
+    halves = stage == "no_deint"
+    band = kind == 3 and fir != 0 and (tile // d) % 128 == 0
+    mt, ht = (_MT[fir], _HT[fir]) if kind == 3 else (1, 1)
+    budget = min(SMEM_CTA, SMEM_SM // ring.ctas_per_sm - 1024)
+    chunk, g, smem = ring.chunk, None, None
+    while chunk >= 128:
+        g, smem = _geo(kind, tile // d, k, d, halves, mt, ht, band, chunk,
+                       ring.stages)
+        if smem is not None and smem <= budget:
+            break
+        chunk //= 2
+    if smem is None:
+        raise ValueError(f"ring_plan: no chunk fits at K {k}, D {d}, "
+                         f"tile {tile}")
+    items = c * (t // tile)
+    fit = min(ring.ctas_per_sm, SMEM_SM // (smem + 1024))
+    g.update(kind=kind, smem=smem, items=items, tiles=t // tile, k=k, d=d,
+             tile=tile, n=k + tile, warps=ring.warps,
+             deint=_HALVES if halves else _DEINT.get(deint_prec, 0),
+             grid=min(items, max(fit, 1) * sms),
+             mt=mt, ht=ht, extra=0 if kind == 1 else 1)
+    return g
+
+
+def item_pieces(plan: dict) -> list[tuple[int, int, int]]:
+    """One item's pieces (q0, q1, fire) as the producer makes them: the m
+    values [q0, q1) (deint_only: the samples), at most ss a piece, each
+    FIR chunk's last piece naming the chunk (else -1)."""
+    out, q, c = [], 0, 0
+    d, k = plan["d"], plan["k"]
+    while q < plan["q_need"]:
+        if plan["kind"] == 3:
+            qe = min(plan["q_need"], ((c + 1) * plan["chunk"] - 1) * d + k)
+        else:
+            qe = min(plan["q_need"], (c + 1) * plan["ss"])
+        q1 = min(qe, q + plan["ss"])
+        out.append((q, q1, c if plan["kind"] == 3 and q1 == qe else -1))
+        q = q1
+        if q1 == qe:
+            c += 1
+    return out
+
+
+def item_order(plan: dict, claimed: bool = False, seed: int = 0
+               ) -> list[list[int]]:
+    """Each CTA's items in order: its first is its index; then, dealt,
+    every grid-th after it, or, claimed, grid + the counter's next value,
+    the CTAs claiming in an order drawn from ``seed`` (the counter ends
+    at zero: the last CTA resets it)."""
+    grid, items = plan["grid"], plan["items"]
+    if not claimed:
+        return [list(range(b, items, grid)) for b in range(grid)]
+    rng = random.Random(seed)
+    orders = [[b] for b in range(grid)]
+    live = list(range(grid))
+    counter = 0
+    while live:
+        b = rng.choice(live)
+        nxt = grid + counter
+        counter += 1
+        if nxt >= items:
+            live.remove(b)
+        else:
+            orders[b].append(nxt)
+    return orders
+
+
+def piece_regions(plan: dict, x_float_addr: int, row: int, i: int, q0: int,
+                  q1: int) -> list[dict]:
+    """The floats a piece stages (csrc/wbfm_proto.cu region): one region of
+    the window's interleaved floats, or no_deint's two halves, each
+    {"p0", "p1": positions in the row's [carry | x], "a": p0's float
+    address mod 4 (its offset in the stage; 0 for interleaved pairs at an
+    odd address, which go all by plain loads), "pa", "pb": the span one
+    bulk copy moves (16-byte aligned, pa == pb == p1 where none), "plain":
+    the positions plain loads move}.  x_float_addr: the float address (byte
+    address / 4) of x[0, 0]; rows are 2T floats apart."""
+    k2, t = 2 * plan["k"], plan["tiles"] * plan["tile"]
+    x4 = x_float_addr + row * 2 * t                # x[row, 0]
+    pbase = 2 * plan["tile"] * i
+    ext = plan["extra"]
+    if plan["halves"]:
+        spans = [(pbase + q0, pbase + q1 + ext),
+                 (pbase + plan["n"] + q0, pbase + plan["n"] + q1 + ext)]
+    else:
+        spans = [(pbase + 2 * q0, pbase + 2 * (q1 + ext))]
+    out = []
+    for p0, p1 in spans:
+        a = (x4 + p0 - k2) % 4
+        lo = max(p0, k2)
+        pa = pb = p1
+        if not plan["halves"] and a % 2:
+            # interleaved pairs at an odd float address: all plain, staged
+            # from offset 0 (a sample stays one aligned float2)
+            a = 0
+        elif lo < p1:
+            ca = lo + (4 - (x4 + lo - k2) % 4) % 4
+            cb = p1 - (x4 + p1 - k2) % 4
+            if cb > ca:
+                pa, pb = ca, cb
+        plain = list(range(p0, min(p1, k2))) + list(range(lo, pa)) + \
+            list(range(pb, p1))
+        out.append({"p0": p0, "p1": p1, "a": a, "pa": pa, "pb": pb,
+                    "plain": plain})
+    return out
+
+
+class Bar:
+    """An mbarrier: a phase completes when its ``count`` arrivals are in
+    and its expected transaction bytes have landed; try_wait.parity p
+    passes once the phase of parity p has completed."""
+
+    def __init__(self, count: int):
+        self.count, self.phase, self.pending, self.tx = count, 0, count, 0
+
+    def arrive(self, tx: int = 0):
+        if self.pending == 0:
+            raise RuntimeError("arrive on a completed phase")
+        self.tx += tx
+        self.pending -= 1
+        self._step()
+
+    def complete_tx(self, n: int):
+        self.tx -= n
+        self._step()
+
+    def _step(self):
+        if self.pending == 0 and self.tx == 0:
+            self.phase += 1
+            self.pending = self.count
+
+    def passes(self, parity: int) -> bool:
+        return (self.phase & 1) != parity
+
+
+def stage_use(j: int, stages: int) -> tuple[int, int, int | None]:
+    """Piece j of a CTA: (its stage, the parity of the "full" phase the
+    consumers wait on, the parity of the "empty" phase the producer waits
+    on before refilling the stage, None on its first use)."""
+    u = j // stages
+    return j % stages, u & 1, (u - 1) & 1 if u else None
+
+
+def simulate_cta(plan: dict, items: list[int], seed: int = 0,
+                 drop: str | None = None) -> list[tuple]:
+    """One CTA's producer and consumer warps run csrc/wbfm_proto.cu's
+    loops over ``items`` against models of the mbarriers (full: 32
+    producer lanes and the bulk bytes; empty: one arrival a consumer
+    warp) and the consumers' named barrier before each FIR; bulk copies
+    land and warps step in an order drawn from ``seed``.  ``drop``
+    ("empty" or "full") leaves out the producer's or the consumers' wait,
+    as a faulty kernel would.  Checks, as it goes, that no stage is
+    refilled before every consumer warp has released its last piece and
+    that no consumer reads a stage before its piece has landed; raises on
+    a violation or a deadlock.  Returns the events (warp, kind, j,
+    piece)."""
+    rng = random.Random(seed)
+    ns, nw = plan["stages"], plan["warps"]
+    pieces = [(it, q0, q1, fire) for it in items
+              for q0, q1, fire in item_pieces(plan)] + [(-1, 0, 0, -1)]
+    full = [Bar(32) for _ in range(ns)]
+    empty = [Bar(nw) for _ in range(ns)]
+    holds = [None] * ns                      # (piece index, landed)
+    released = [set() for _ in range(ns)]    # warps done with its piece
+    loads: list[tuple[int, int]] = []        # (stage, bytes) in flight
+    pj = 0
+    cj = [0] * nw
+    at_bar = [None] * nw                     # the FIR chunk a warp waits at
+    done = [False] * nw
+    events: list[tuple] = []
+    while True:
+        acts = []
+        if pj < len(pieces):
+            st, _, ep = stage_use(pj, ns)
+            if ep is None or drop == "empty" or empty[st].passes(ep):
+                acts.append(("produce", None))
+        if loads:
+            acts.append(("land", None))
+        for w in range(nw):
+            if done[w] or at_bar[w] is not None:
+                continue
+            st, fp, _ = stage_use(cj[w], ns)
+            if drop == "full" or full[st].passes(fp):
+                acts.append(("consume", w))
+        waiting = [w for w in range(nw) if at_bar[w] is not None]
+        if waiting and len(waiting) + sum(done) == nw:
+            acts.append(("barrier", None))
+        if not acts:
+            break
+        act, w = rng.choice(acts)
+        if act == "produce":
+            st = pj % ns
+            if holds[st] is not None and holds[st][0] == pj - ns and \
+                    len(released[st]) < nw:
+                raise RuntimeError(f"stage {st} refilled with piece {pj} "
+                                   f"before every consumer released piece "
+                                   f"{pj - ns}")
+            it = pieces[pj][0]
+            nbytes = 0 if it < 0 else 16 * (1 + rng.randrange(4))
+            holds[st] = (pj, nbytes == 0)
+            released[st] = set()
+            for lane in range(32):
+                full[st].arrive(nbytes if lane == 0 else 0)
+            if nbytes:
+                loads.append((st, nbytes))
+            events.append((-1, "produce", pj, pieces[pj]))
+            pj += 1
+        elif act == "land":
+            st, nbytes = loads.pop(rng.randrange(len(loads)))
+            holds[st] = (holds[st][0], True)
+            full[st].complete_tx(nbytes)
+            events.append((-1, "land", holds[st][0], None))
+        elif act == "consume":
+            j = cj[w]
+            st = j % ns
+            if holds[st] is None or holds[st][0] != j or not holds[st][1]:
+                raise RuntimeError(f"warp {w} read stage {st} for piece {j} "
+                                   f"while it holds {holds[st]}")
+            piece = pieces[j]
+            events.append((w, "consume", j, piece))
+            if piece[0] < 0:
+                done[w] = True
+                continue
+            released[st].add(w)
+            empty[st].arrive()
+            cj[w] += 1
+            if piece[3] >= 0:
+                at_bar[w] = piece[3]
+        else:
+            chunks = {at_bar[w] for w in waiting}
+            if len(chunks) != 1:
+                raise RuntimeError(f"warps met at the barrier for chunks "
+                                   f"{chunks}")
+            for w in waiting:
+                events.append((w, "fir", cj[w] - 1, at_bar[w]))
+                at_bar[w] = None
+    if not all(done) or pj < len(pieces) or loads:
+        raise RuntimeError(f"ring deadlocked: producer at {pj}, consumers "
+                           f"at {cj}")
+    return events
+
+
+def edge_shapes(ring: Ring = RING, sms: int = SMS) -> dict[str, tuple]:
+    """(C, K, D, tile, tiles a row, x's float offset, deint, fir, stage)
+    at the ring's edges on ``sms`` SMs: fewer items than CTAs, an item
+    count no multiple of the grid, a last chunk shorter than the others,
+    x 8 and 4 bytes off 16, tile 0's carry span (no_deint and fp32), the
+    2^15 tile, and a first piece split (K - D past a chunk of D values)."""
+    grid = ring.ctas_per_sm * sms
+    return {"fewer items than CTAs": (1, 128, 8, 2048, 2, 0, "sel3",
+                                      "split22", "full"),
+            "items no multiple of the grid": (3, 128, 8, 1024,
+                                              grid // 3 + 5, 0, "sel3",
+                                              "split22", "full"),
+            "a last chunk shorter than the others": (
+                2, 128, 8, 3 * ring.chunk * 8 // 2, 3, 0, "sel3cat",
+                "split22", "full"),
+            "x 8 bytes off 16": (2, 128, 8, 2048, 3, 2, "sel2", "split22",
+                                 "full"),
+            "x 4 bytes off 16, deint_only": (2, 128, 8, 2048, 3, 1,
+                                             "default", "default",
+                                             "deint_only"),
+            "tile 0's carry span, no_deint": (2, 128, 8, 1024, 1, 0, "sel3",
+                                              "split22", "no_deint"),
+            "tile 0's carry span, fp32": (2, 128, 8, 1024, 2, 2, "highest",
+                                          "highest", "full"),
+            "tile 2^15": (1, 128, 8, 1 << 15, 1, 2, "sel3cat", "two",
+                          "full")}
+
+
+def mirror_values(carry: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
+                  d: int, inv_gain: float, tile: int,
+                  deint_prec: str = "highest", fir_prec: str = "highest",
+                  stage: str = "full", ring: Ring = RING, sms: int = SMS,
+                  x_float_addr: int = 0) -> torch.Tensor:
+    """The kernel's outputs by its plan, on the CPU: each CTA takes its
+    dealt items in order; each piece's floats are gathered from its
+    regions (plain and bulk spans, at the stage offsets a), each rounded
+    once; each m computed once from neighbouring samples of the piece (the
+    twin's discriminate on the piece's samples); m's terms written into a
+    ring of rc columns (the first ext mirrored past rc) at the CTA's
+    column base, which moves on item_cols an item; at a chunk's last
+    piece its outputs summed from the ring: on the band, over the 16 ks
+    columns each 8-output row of a 128-output tile reads (the taps zero
+    past u), else over the u taps.  Matches the twin bit for bit in
+    deint_only and no_fir and up to the order of accumulation in the FIR
+    stages."""
+    plan = ring_plan(x.shape[0], x.shape[1] // 2, taps.shape[0], d, tile,
+                     stage, deint_prec, fir_prec, ring, sms)
+    c, w = x.shape
+    t = w // 2
+    per, k = plan["per"], plan["k"]
+    out = torch.full((c, t // d), float("nan"))
+    flat = torch.cat([carry, x], 1)               # the row's [carry | x]
+    gain = torch.tensor(np.float32(inv_gain))
+    ext, rc = plan["ext"], plan["rc"]
+    if plan["kind"] == 3:
+        hterms = _tap_terms(taps, fir_prec)
+        mt_n = plan["mt"]
+    for cta_items in item_order(plan):
+        col_base = 0
+        ring_m = None
+        if plan["kind"] == 3:
+            ring_m = torch.zeros((mt_n, d, rc + ext))
+        for item in cta_items:
+            row, i = divmod(item, plan["tiles"])
+            base = col_base
+            col_base = (col_base + plan["item_cols"]) % rc if rc else 0
+            for q0, q1, fire in item_pieces(plan):
+                regs = piece_regions(plan, x_float_addr, row, i, q0, q1)
+                vals = []
+                for r in regs:
+                    n_f = r["p1"] - r["p0"]
+                    stg = torch.full((r["a"] + n_f,), float("nan"))
+                    idx = torch.arange(r["p0"], r["p1"])
+                    stg[r["a"]:] = flat[row, idx]
+                    vals.append(stg[r["a"]:])
+                if plan["halves"]:
+                    re, im = vals[0], vals[1]
+                else:
+                    re = round_deint(vals[0][0::2], deint_prec)
+                    im = round_deint(vals[0][1::2], deint_prec)
+                if plan["kind"] == 1:
+                    out[row, i * per + q0:i * per + q1] = re + im
+                    continue
+                m = discriminate(re, im, gain)            # [q1 - q0]
+                if plan["kind"] == 2:
+                    out[row, i * per + q0:i * per + q1] = m
+                    continue
+                q = torch.arange(q0, q1)
+                cols = (base + q // d) % rc
+                ph = q % d
+                fterms = fir_terms(m, taps, fir_prec)
+                for tt, (mterm, _) in enumerate(fterms[:mt_n]):
+                    ring_m[tt, ph, cols] = mterm
+                    mir = cols < ext
+                    ring_m[tt, ph[mir], cols[mir] + rc] = mterm[mir]
+                if fire < 0:
+                    continue
+                o0 = fire * plan["chunk"]
+                nout = min(per, o0 + plan["chunk"]) - o0
+                s0 = (base + o0) % rc
+                y = _mirror_fir(plan, ring_m, fterms, hterms, fir_prec, s0,
+                                nout, taps)
+                out[row, i * per + o0:i * per + o0 + nout] = y
+    return out
+
+
+def _tap_terms(taps, fir_prec):
+    """The FIR mode's tap terms (csrc/wbfm_proto.cu h_terms)."""
+    if fir_prec in ("highest", "two_hi"):
+        return [taps]
+    hi = _bf(taps)
+    if fir_prec in ("split22", "two"):
+        return [hi, _bf(taps - hi)]
+    return [hi]
+
+
+def _mirror_fir(plan, ring_m, fterms, hterms, fir_prec, s0, nout, taps):
+    """A chunk's nout outputs from the ring at column s0 (see
+    mirror_values)."""
+    d, u, rc = plan["d"], plan["u"], plan["rc"]
+    k = plan["k"]
+    # g_p[j] = h[K-1 - jD - p] as each tap term, zero outside 0 <= j < u
+    width = 16 * plan["ks"] + 8 if plan["band"] else u
+    gp = torch.zeros((len(hterms), d, width))
+    for p in range(d):
+        for j in range(u):
+            kk = k - 1 - j * d - p
+            if kk >= 0:
+                for tt, ht in enumerate(hterms):
+                    gp[tt, p, j] = ht[kk]
+    # which (m term, tap term) pairs the mode sums
+    if fir_prec in ("split22", "two"):
+        pairs = [(0, 0), (1, 0), (0, 1)]
+    else:
+        pairs = [(tt, 0) for tt in range(plan["mt"])]
+    o = torch.arange(nout)
+    pos = s0 + o
+    pos = torch.where(pos >= rc, pos - rc, pos)
+    y = torch.zeros(nout)
+    if plan["band"]:
+        # a tile's row of 8 outputs reads columns start + [0, 16 ks):
+        # output n of the row takes column start + c with tap c - n
+        start = pos - (o % 8)
+        for mt_i, ht_i in pairs:
+            for p in range(d):
+                for cc in range(16 * plan["ks"]):
+                    j = cc - (o % 8)
+                    ok = (j >= 0) & (j < width)
+                    g = torch.where(ok, gp[ht_i, p, j.clamp(0, width - 1)],
+                                    0.0)
+                    y = y + ring_m[mt_i, p, start + cc] * g
+    else:
+        for mt_i, ht_i in pairs:
+            for p in range(d):
+                for j in range(u):
+                    y = y + ring_m[mt_i, p, pos + j] * gp[ht_i, p, j]
+    return y
+
+
 __all__ = ["wbfm_proto", "wbfm_proto_reference", "round_deint", "fir_terms",
-           "PRECISIONS", "FIR_PRECISIONS", "STAGES"]
+           "PRECISIONS", "FIR_PRECISIONS", "STAGES", "Ring",
+           "RING", "SMS", "ring_plan", "item_pieces", "item_order",
+           "piece_regions", "Bar", "stage_use", "simulate_cta",
+           "edge_shapes", "mirror_values"]

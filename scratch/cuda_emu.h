@@ -1,5 +1,6 @@
-// Host emulation of the CUDA subset csrc/pll_overlap.cu uses, for
-// scratch/scan_emu.py: each CUDA thread is a std::thread and blocks run
+// Host emulation of the CUDA subset csrc/pll_overlap.cu and
+// csrc/wbfm_proto.cu use, for scratch/scan_emu.py and
+// scratch/wbfm_proto_emu.py: each CUDA thread is a std::thread and blocks run
 // one after another; mbarriers (arrival counts, transaction bytes,
 // phases) and TMA bulk copies are emulated (a bulk load lands after a
 // random delay, from a thread of its own; misaligned bulk copies throw).
@@ -22,11 +23,14 @@
 #include <chrono>
 #include <barrier>
 #include <stdexcept>
+#include <memory>
+#include <atomic>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __noinline__
+#define __launch_bounds__(...)
 #define __align__(x) __attribute__((aligned(x)))
 #define __shared__
 struct float2 { float x, y; };
@@ -40,7 +44,8 @@ inline std::barrier<>* lr_block_barrier;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101,
-       cudaErrorInvalidConfiguration = 9, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+       cudaErrorInvalidConfiguration = 9, cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaDevAttrMultiProcessorCount = 16 };
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
@@ -49,10 +54,91 @@ inline long long clock64() { return 0; }
 inline void __trap() { throw std::runtime_error("trap"); }
 inline void __syncthreads() { lr_block_barrier->arrive_and_wait(); }
 using std::isnan;
+using std::isinf;
+using std::signbit;
+struct dim3 { unsigned x = 1, y = 1, z = 1; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
+// the SMs the launches see: LR_EMU_SMS (default 2)
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  const char* e = std::getenv("LR_EMU_SMS"); *v = e ? std::atoi(e) : 2; return 0;
+}
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 4; return 0;
+}
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float fast_rcp(float v) { return 1.0f / v; }
+
+// ---- bf16 (round to nearest even, as __float2bfloat16_rn) ----
+struct __nv_bfloat16 { uint16_t v; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u; std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1);
+  return {(uint16_t)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  uint32_t u = (uint32_t)b.v << 16; float f; std::memcpy(&f, &u, 4); return f;
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
+inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
+
+// ---- warps: each CUDA thread a std::thread, a warp's 32 meet at a barrier ----
+struct EmuWarp { std::barrier<> bar{32}; uint64_t slot[32]; };
+inline std::vector<std::unique_ptr<EmuWarp>>* lr_warps;
+inline std::unique_ptr<std::barrier<>> lr_named;
+inline std::mutex lr_named_mu;
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  (*lr_warps)[threadIdx.x / 32]->bar.arrive_and_wait();
+}
+template <class T> inline T lr_shfl(T v, int src) {
+  EmuWarp& w = *(*lr_warps)[threadIdx.x / 32];
+  uint64_t bits = 0; std::memcpy(&bits, &v, sizeof(T));
+  w.slot[threadIdx.x % 32] = bits;
+  w.bar.arrive_and_wait();
+  uint64_t got = w.slot[src];
+  w.bar.arrive_and_wait();
+  T r; std::memcpy(&r, &got, sizeof(T)); return r;
+}
+template <class T> inline T __shfl_sync(unsigned, T v, int src) { return lr_shfl(v, src & 31); }
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int mask) {
+  return lr_shfl(v, (threadIdx.x % 32) ^ mask);
+}
+template <class T> inline T __shfl_up_sync(unsigned, T v, int delta) {
+  const int lane = threadIdx.x % 32;
+  T got = lr_shfl(v, lane >= delta ? lane - delta : lane);
+  return got;
+}
+// bar.sync 1, n among the block's consumers (n threads)
+inline void bar_consumers(int n) {
+  {
+    std::lock_guard<std::mutex> g(lr_named_mu);
+    if (!lr_named) lr_named = std::make_unique<std::barrier<>>(n);
+  }
+  lr_named->arrive_and_wait();
+}
+inline std::mutex lr_atomic_mu;
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  std::lock_guard<std::mutex> g(lr_atomic_mu); unsigned long long o = *p; *p = o + v; return o;
+}
+inline unsigned long long atomicExch(unsigned long long* p, unsigned long long v) {
+  std::lock_guard<std::mutex> g(lr_atomic_mu); unsigned long long o = *p; *p = v; return o;
+}
+// atan2f's fast path is libdevice's: here every pair declines it, so the
+// caller takes atan2f (the host libm's)
+inline float atan2_fast_path(float, float, bool& ok) { ok = false; return 0.0f; }
+// the tensor-core band is not emulated: a run that reaches it fails
+inline void ldmatrix_x4(uint32_t, uint32_t (&)[4]) { throw std::runtime_error("ldmatrix not emulated"); }
+inline void mma_bf16(float (&)[4], const uint32_t (&)[4], uint32_t, uint32_t) {
+  throw std::runtime_error("mma not emulated");
+}
 
 // ---- mbarriers ----
 struct EmuBar { uint32_t count = 0, pending = 0; int64_t tx = 0; uint64_t done = 0; };
@@ -109,18 +195,24 @@ inline void bulk_wait_all() {}
 inline void fence_proxy_async() {}
 
 template <class F>
-void lr_launch(F fn, long long grid, int block, size_t smem, cudaStream_t) {
-  for (long long b = 0; b < grid; ++b) {
+void lr_launch(F fn, dim3 grid, int block, size_t smem, cudaStream_t) {
+  for (unsigned by = 0; by < grid.y; ++by)
+  for (unsigned bx = 0; bx < grid.x; ++bx) {
     std::vector<unsigned char> buf(smem + 256);
     unsigned char* base = (unsigned char*)(((uintptr_t)buf.data() + 127) & ~(uintptr_t)127);
     std::barrier<> bar(block);
     lr_block_barrier = &bar;
+    std::vector<std::unique_ptr<EmuWarp>> warps;
+    for (int w = 0; w < (block + 31) / 32; ++w) warps.push_back(std::make_unique<EmuWarp>());
+    lr_warps = &warps;
+    lr_named.reset();
     std::vector<std::thread> ts;
     std::exception_ptr err;
     std::mutex em;
     for (int t = 0; t < block; ++t)
       ts.emplace_back([&, t] {
-        threadIdx.x = t; blockIdx.x = (unsigned)b; blockDim.x = block; gridDim.x = (unsigned)grid;
+        threadIdx.x = t; blockIdx.x = bx; blockIdx.y = by; blockDim.x = block;
+        gridDim.x = grid.x; gridDim.y = grid.y;
         lr_smem_ptr = base;
         try { fn(); } catch (...) { std::lock_guard<std::mutex> g(em); err = std::current_exception(); }
       });
@@ -129,4 +221,8 @@ void lr_launch(F fn, long long grid, int block, size_t smem, cudaStream_t) {
     std::this_thread::sleep_for(std::chrono::milliseconds(1));
     if (err) std::rethrow_exception(err);
   }
+}
+template <class F>
+void lr_launch(F fn, long long grid, int block, size_t smem, cudaStream_t s) {
+  lr_launch(fn, dim3((unsigned)grid), block, smem, s);
 }
