@@ -46,8 +46,14 @@ Modes (the JAX package's):
     the fused run's bit for bit.
 
 With a tracer (``Runner(trace=True)`` or ``LUARADIO_TPU_TRACE=1``,
-core/trace.py) the pump records the spans ``sources.read``,
-``sources.wait``, ``segment[i].dispatch`` and ``host[i].process``.
+core/trace.py, which lists each span with its thread and parent) the
+read-ahead thread records ``sources.read`` and ``sources.h2d`` (the pump
+does, in eager mode or where every source is device-resident), and the
+pump ``sources.wait``, ``segment[i].dispatch`` (with the PLL's
+``pll.host_read`` inside), ``chunk.hold`` (pipelined mode),
+``host.d2h_wait`` and ``host[i].process`` for stages with host blocks.
+Every span carries the sequence number of its chunk, assigned in read
+order, so one chunk's records join on it (``Runner.tracer.events()``).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from __future__ import annotations
 import copy
 import queue
 import threading
+import time
 from typing import Any
 
 import numpy as np
@@ -229,24 +236,27 @@ class _Prefetcher:
     from its process-per-block pipes (composite.lua:568-636); here one
     thread + a small bounded queue replaces the socketpair transport.
 
-    ``read_fn`` is Runner._read_sources; ``put_fn(key, arr)`` moves a
-    payload to the device (returns the value to enqueue).  Errors raised by
-    either propagate out of :meth:`get` on the pump thread.
+    ``read_fn(seq)`` is Runner._read_chunk: chunk ``seq`` (its sequence
+    number, from 0, in read order) read and moved to the device, as
+    (values, nvalid, eof, seq), or None at EOF.  Errors it raises
+    propagate out of :meth:`get` on the pump thread.  ``tracer`` is made
+    the thread's current one (core/trace.py).
 
     The reader runs up to ``depth`` chunks ahead of consumption; ``budget``
     (set from Runner.run's max_chunks) bounds the read-ahead so a bounded
     run never reads source chunks it will not consume.
     """
 
-    def __init__(self, read_fn, put_fn, depth: int = 3,
-                 budget: int | None = None):
+    def __init__(self, read_fn, depth: int = 3, budget: int | None = None,
+                 tracer: trace_mod.Tracer | None = None):
         self._read_fn = read_fn
-        self._put_fn = put_fn
+        self._tracer = tracer
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._budget = budget
         self.error: BaseException | None = None
-        self._thread = threading.Thread(target=self._main, daemon=True)
+        self._thread = threading.Thread(target=self._main, daemon=True,
+                                        name="read-ahead")
         self._thread.start()
 
     def _put(self, item) -> bool:
@@ -259,18 +269,15 @@ class _Prefetcher:
         return False
 
     def _main(self):
+        trace_mod.set_current(self._tracer)
         try:
             n_read = 0
             while not self._stop.is_set():
                 if self._budget is not None and n_read >= self._budget:
                     chunk = None
                 else:
-                    chunk = self._read_fn()
+                    chunk = self._read_fn(n_read)
                     n_read += 1
-                if chunk is not None:
-                    values, nvalid, eof = chunk
-                    values = {k: self._put_fn(k, v) for k, v in values.items()}
-                    chunk = (values, nvalid, eof)
                 self._put(chunk)
                 if chunk is None or chunk[2]:
                     return
@@ -279,8 +286,8 @@ class _Prefetcher:
             self._put(None)
 
     def get(self):
-        """Next (values, nvalid, eof) chunk, or None at EOF.  Re-raises any
-        reader-thread exception."""
+        """Next (values, nvalid, eof, seq) chunk, or None at EOF.
+        Re-raises any reader-thread exception."""
         while True:
             if self.error is not None and self._q.empty():
                 err, self.error = self.error, None
@@ -492,19 +499,21 @@ class Runner:
         self._thread: threading.Thread | None = None
         self._chunk_budget: int | None = None
         self._prefetcher: _Prefetcher | None = None
+        self._n_read = 0        # chunks the pump read itself (their seq)
         self.running = False
         self.chunks_processed = 0
         self.error: BaseException | None = None
         self._cleaned_up = False
 
     # ------------------------------------------------------------------
-    def _prefetch_put(self, key: str, value):
-        """Copy payloads that only device blocks consume to the device
-        (the graph's device, named explicitly: in fused mode this runs on
-        the read-ahead thread, in eager mode on the pump)."""
-        if key not in self._transfer_keys or not isinstance(value, np.ndarray):
-            return value
-        return self._to_device(value)
+    def _prefetch_put(self, values: dict) -> dict:
+        """A chunk's values with the payloads that only device blocks
+        consume copied to the device (the graph's device, named
+        explicitly: in fused mode this runs on the read-ahead thread, in
+        eager mode on the pump)."""
+        return {k: self._to_device(v) if k in self._transfer_keys
+                and isinstance(v, np.ndarray) else v
+                for k, v in values.items()}
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         with self._h2d_lock:
@@ -512,30 +521,44 @@ class Runner:
         return to_device(arr, self.device)
 
     def _next_chunk(self):
-        """One chunk of source data, via the read-ahead thread in fused
-        mode (lazily started) or read by the pump itself in eager mode.
-        When every source is device-resident there is no host read or copy
-        to overlap, so the pump reads the windows itself."""
-        if not self.sources:
-            return {}, {}, False
-        if self.mode == "eager" or all(id(s) in self._resident_srcs
-                                       for s in self.sources):
-            chunk = self._traced("sources.read", self._read_sources)
-            if chunk is not None:
-                values, nvalid, eof = chunk
-                chunk = ({k: self._prefetch_put(k, v)
-                          for k, v in values.items()}, nvalid, eof)
-            return chunk
+        """One chunk of source data (values, nvalid, eof, seq), via the
+        read-ahead thread in fused mode (lazily started) or read by the
+        pump itself in eager mode; None at EOF.  When every source is
+        device-resident there is no host read or copy to overlap, so the
+        pump reads the windows itself."""
+        if not self.sources or self.mode == "eager" or all(
+                id(s) in self._resident_srcs for s in self.sources):
+            seq = self._n_read
+            self._n_read += 1
+            return self._read_chunk(seq) if self.sources \
+                else ({}, {}, False, seq)
         if self._prefetcher is None:
             self._prefetcher = _Prefetcher(
-                lambda: self._traced("sources.read", self._read_sources),
-                self._prefetch_put, budget=self._chunk_budget)
-        return self._traced("sources.wait", self._prefetcher.get)
+                self._read_chunk, budget=self._chunk_budget,
+                tracer=self.tracer)
+        if self.tracer is None:
+            return self._prefetcher.get()
+        with self.tracer.span("sources.wait") as sp:
+            chunk = self._prefetcher.get()
+            if chunk is not None:
+                sp.chunk = chunk[3]
+            return chunk
 
-    def _traced(self, name, fn, *args):
+    def _read_chunk(self, seq: int):
+        """Chunk ``seq`` read from the host sources and its device payloads
+        copied (spans ``sources.read``, ``sources.h2d``): (values, nvalid,
+        eof, seq), or None at EOF."""
+        chunk = self._traced("sources.read", seq, self._read_sources)
+        if chunk is None:
+            return None
+        values, nvalid, eof = chunk
+        return (self._traced("sources.h2d", seq, self._prefetch_put, values),
+                nvalid, eof, seq)
+
+    def _traced(self, name, chunk, fn, *args):
         if self.tracer is None:
             return fn(*args)
-        with self.tracer.span(name):
+        with self.tracer.span(name, chunk):
             return fn(*args)
 
     def _read_sources(self):
@@ -653,10 +676,15 @@ class Runner:
                 for oi in range(1, len(b.outputs)):
                     nvalid[f"{k}.{oi}"] = nvalid[f"{k}.0"]
 
-    def _run_hosts(self, host_blocks, values, nvalid, fetches):
-        g = self.graph
+    @staticmethod
+    def _wait_copies(fetches):
+        """Wait for the copies back to the host that ``fetches`` (CUDA
+        events) mark."""
         while fetches:
             fetches.pop().synchronize()
+
+    def _run_hosts(self, host_blocks, values, nvalid):
+        g = self.graph
         for b in host_blocks:
             # a bank's clones, per-channel inputs and masked device
             # outputs go row by row (compacting [C, T] values with a
@@ -729,23 +757,31 @@ class Runner:
 
     def _dispatch_chunk(self):
         """Phase 1: sources + all device segments (queued on the card).
-        Returns (values, nvalid, eof, fetches) or None at EOF."""
+        Returns (values, nvalid, eof, fetches, seq, t_dispatched) or None
+        at EOF; ``t_dispatched`` (perf_counter_ns, only when tracing) ends
+        the dispatch, where the chunk's hold starts."""
         chunk = self._next_chunk()
         if chunk is None:
             return None
-        values, nvalid, eof = chunk
+        values, nvalid, eof, seq = chunk
         fetches: list = []
         for i, (seg, _) in enumerate(self.stage_plan):
             if seg is not None:
-                self._traced(f"segment[{i}].dispatch", self._run_segment,
+                self._traced(f"segment[{i}].dispatch", seq, self._run_segment,
                              seg, values, nvalid, fetches)
-        return values, nvalid, eof, fetches
+        t_dispatched = (time.perf_counter_ns() if self.tracer is not None
+                        else None)
+        return values, nvalid, eof, fetches, seq, t_dispatched
 
-    def _finish_chunk(self, values, nvalid, fetches):
-        """Phase 2: the host tail (waits for this chunk's copies)."""
+    def _finish_chunk(self, dispatched):
+        """Phase 2: the host tail of a chunk ``_dispatch_chunk`` returned,
+        after waiting for its copies."""
+        values, nvalid, _, fetches, seq, _ = dispatched
+        self._traced("host.d2h_wait", seq, self._wait_copies, fetches)
         for i, (_, host_blocks) in enumerate(self.stage_plan):
-            self._traced(f"host[{i}].process", self._run_hosts,
-                         host_blocks, values, nvalid, fetches)
+            if host_blocks:
+                self._traced(f"host[{i}].process", seq, self._run_hosts,
+                             host_blocks, values, nvalid)
         self.chunks_processed += 1
 
     def _pump_once(self) -> bool:
@@ -753,24 +789,32 @@ class Runner:
         chunk = self._next_chunk()
         if chunk is None:
             return False
-        values, nvalid, eof = chunk
+        values, nvalid, eof, seq = chunk
         for i, (seg, host_blocks) in enumerate(self.stage_plan):
             fetches: list = []
             if seg is not None:
-                self._traced(f"segment[{i}].dispatch", self._run_segment,
+                self._traced(f"segment[{i}].dispatch", seq, self._run_segment,
                              seg, values, nvalid, fetches)
-            self._traced(f"host[{i}].process", self._run_hosts,
-                         host_blocks, values, nvalid, fetches)
+            self._traced("host.d2h_wait", seq, self._wait_copies, fetches)
+            if host_blocks:
+                self._traced(f"host[{i}].process", seq, self._run_hosts,
+                             host_blocks, values, nvalid)
         self.chunks_processed += 1
         return not eof
 
     def _run_pipelined(self, max_chunks: int | None):
+        """Chunk k's host tail runs after chunk k+1 is dispatched: k is
+        held (span ``chunk.hold``) while k-1's host tail runs and k+1 is
+        waited for and queued."""
         pending = None
         n = 0
         while not self._stop.is_set():
             cur = self._dispatch_chunk()
             if pending is not None:
-                self._finish_chunk(*pending[:2], pending[3])
+                if cur is not None and self.tracer is not None:
+                    self.tracer.record("chunk.hold", pending[5],
+                                       time.perf_counter_ns(), pending[4])
+                self._finish_chunk(pending)
             pending = cur
             if cur is None:
                 break
@@ -778,7 +822,7 @@ class Runner:
             if cur[2] or (max_chunks is not None and n >= max_chunks):
                 break
         if pending is not None:
-            self._finish_chunk(*pending[:2], pending[3])
+            self._finish_chunk(pending)
 
     def run(self, max_chunks: int | None = None):
         """Run to EOF (or error).  A block exception collapses the graph and
@@ -786,6 +830,7 @@ class Runner:
         (radio/core/composite.lua:773-847)."""
         self.running = True
         self._chunk_budget = max_chunks
+        prev = trace_mod.set_current(self.tracer)
         try:
             if self.pipelined:
                 self._run_pipelined(max_chunks)
@@ -803,6 +848,7 @@ class Runner:
             self.error = exc
             raise
         finally:
+            trace_mod.set_current(prev)
             self.running = False
             self._cleanup_once()
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from luaradio_tpu_torch.core import trace
 from luaradio_tpu_torch.ops.scan import linrec_first_order
 
 _TWO_PI = float(np.float32(2 * np.pi))
@@ -141,9 +142,12 @@ def pll_linear(x, state, alpha, beta, fmin, fmax, mult: int):
 
 
 def _host(t: torch.Tensor) -> list:
-    """One device-to-host read of a small tensor (counted)."""
+    """One device-to-host read of a small tensor (counted, and timed as
+    span ``pll.host_read`` where the thread has a tracer: the read waits
+    for every kernel queued before it)."""
     pll_hybrid.host_reads += 1
-    return t.reshape(-1).tolist()
+    with trace.span("pll.host_read"):
+        return t.reshape(-1).tolist()
 
 
 def pll_hybrid(x, state, alpha, beta, fmin, fmax, mult: int, sequential,

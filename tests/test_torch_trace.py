@@ -1,0 +1,278 @@
+"""The runtime's span records (luaradio_tpu_torch/core/trace.py): chunk
+ids and parents on every span of the pump and the read-ahead thread, the
+pipelined hold, the PLL's host reads as children of their dispatch, the
+same spans as torch.profiler annotations on the records' clock, nothing
+made with tracing off, and the bounded buffer (CPU)."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import luaradio_tpu_torch as tl  # noqa: E402
+from luaradio_tpu_torch.core import trace  # noqa: E402
+from luaradio_tpu_torch.core.runtime import Runner  # noqa: E402
+from luaradio_tpu_torch.ops.pll_linear import pll_hybrid  # noqa: E402
+
+RATE = 220500.0
+PUMP = ("sources.wait", "host.d2h_wait")
+
+
+class _Collect(tl.SinkBlock):
+    def __init__(self):
+        super().__init__()
+        self.got = []
+        self.add_type_signature([tl.Input("in", tl.Float32)], [])
+
+    def process(self, x):
+        self.got.append(np.array(x))
+
+
+def _iq_file(tmp_path, x):
+    path = str(tmp_path / "in.iq")
+    x.astype(np.complex64).view(np.float32).tofile(path)
+    return path
+
+
+def _fm_graph(tmp_path, n=20000):
+    """IQ file -> discriminator -> downsampler -> a host sink."""
+    rng = np.random.default_rng(21)
+    x = np.exp(1j * np.cumsum(rng.uniform(-0.3, 0.3, n)))
+    top = tl.CompositeBlock()
+    sink = _Collect()
+    top.connect(tl.IQFileSource(_iq_file(tmp_path, x), "f32le", 1e6),
+                tl.FrequencyDiscriminatorBlock(5.0), tl.DownsamplerBlock(5),
+                sink)
+    return top
+
+
+def _stereo_graph(tmp_path, seconds=0.08):
+    """WBFMStereoDemodulator (pilot PLL) over broadcast FM stereo at
+    baseband: L a 1 kHz tone, R 400 Hz, pilot 0.1 cos 19 kHz."""
+    t = np.arange(int(RATE * seconds)) / RATE
+    left = 0.4 * np.sin(2 * np.pi * 1000.0 * t)
+    right = 0.4 * np.sin(2 * np.pi * 400.0 * t)
+    mpx = (left + right) + 0.1 * np.cos(2 * np.pi * 19e3 * t) \
+        + (left - right) * np.cos(2 * np.pi * 38e3 * t)
+    x = np.exp(1j * 2 * np.pi * 75e3 * np.cumsum(mpx) / RATE)
+    top = tl.CompositeBlock()
+    demod = tl.WBFMStereoDemodulator(pilot="pll")
+    top.connect(tl.IQFileSource(_iq_file(tmp_path, x), "f32le", RATE), demod)
+    top.connect(demod, "left", _Collect(), "in")
+    top.connect(demod, "right", _Collect(), "in")
+    return top
+
+
+def _by(events, **kw):
+    return [e for e in events
+            if all(getattr(e, k) == v for k, v in kw.items())]
+
+
+def _one(events, name, chunk):
+    got = _by(events, name=name, chunk=chunk)
+    assert len(got) == 1, (name, chunk, got)
+    return got[0]
+
+
+def _inside(child, parent):
+    return parent.t0_ns <= child.t0_ns <= child.t1_ns <= parent.t1_ns
+
+
+def _parents_hold(events):
+    """Every record with a parent lies inside one record of that parent
+    on its thread and chunk."""
+    for e in events:
+        if e.parent is None:
+            continue
+        assert any(_inside(e, p) for p in _by(
+            events, name=e.parent, thread=e.thread, chunk=e.chunk)), e
+
+
+def test_pipelined_run_joins_every_chunk_on_its_id(tmp_path):
+    """Fused and pipelined: each chunk id has one read and one copy on the
+    read-ahead thread, one wait, one dispatch a segment, one copy-back wait
+    and one host span a stage with host blocks on the pump, and a hold
+    (except the last) that contains the next chunk's wait and dispatch and
+    the previous chunk's host tail; the aggregates count the records."""
+    r = Runner(_fm_graph(tmp_path), chunk_size=4096, trace=True,
+               device="cpu")
+    assert r.pipelined
+    r.run()
+    ev = r.tracer.events()
+    segs = [f"segment[{i}].dispatch" for i, (seg, _) in
+            enumerate(r.stage_plan) if seg is not None]
+    hosts = [f"host[{i}].process" for i, (_, hb) in
+             enumerate(r.stage_plan) if hb]
+    ids = sorted({e.chunk for e in ev if e.name == segs[0]})
+    assert ids == list(range(r.chunks_processed)) and len(ids) >= 4
+    for k in ids:
+        for name in ("sources.read", "sources.h2d"):
+            assert _one(ev, name, k).thread == "read-ahead"
+        for name in ("sources.wait", "host.d2h_wait", *segs):
+            rec = _one(ev, name, k)
+            assert rec.thread != "read-ahead" and rec.parent is None
+        holds = _by(ev, name="chunk.hold", chunk=k)
+        if k == ids[-1]:
+            assert holds == []
+            continue
+        (hold,) = holds
+        for name in ("sources.wait", *segs):
+            assert _inside(_one(ev, name, k + 1), hold)
+        if k:       # and the previous chunk's host tail
+            for name in ("host.d2h_wait", *hosts):
+                assert _inside(_one(ev, name, k - 1), hold)
+    _parents_hold(ev)
+    counts = {}
+    for e in ev:
+        counts[e.name] = counts.get(e.name, 0) + 1
+    assert {k: v["count"] for k, v in r.tracer.report().items()} == counts
+    # the host tail's span is opened only for stages with host blocks
+    assert {e.name for e in ev if e.name.startswith("host[")} == set(hosts)
+    for k in ids:
+        for name in hosts:
+            _one(ev, name, k)
+
+
+def test_eager_run_reads_on_the_pump(tmp_path):
+    """Eager mode: read and copy on the pump, no wait and no hold, a
+    copy-back wait once a stage."""
+    r = Runner(_fm_graph(tmp_path), mode="eager", chunk_size=4096,
+               trace=True, device="cpu")
+    r.run()
+    ev = r.tracer.events()
+    assert {e.thread for e in ev} == {"MainThread"}
+    assert not _by(ev, name="sources.wait") and not _by(ev, name="chunk.hold")
+    for k in range(r.chunks_processed):
+        _one(ev, "sources.h2d", k)
+        assert len(_by(ev, name="host.d2h_wait", chunk=k)) \
+            == len(r.stage_plan)
+
+
+def test_pll_host_reads_are_children_of_their_dispatch(tmp_path):
+    """Each of pll_hybrid's host reads is one ``pll.host_read`` record,
+    inside the dispatch of its segment and chunk."""
+    r = Runner(_stereo_graph(tmp_path), chunk_size=4096, trace=True,
+               device="cpu")
+    before = pll_hybrid.host_reads
+    r.run()
+    reads = pll_hybrid.host_reads - before
+    ev = r.tracer.events()
+    got = _by(ev, name="pll.host_read")
+    assert reads >= r.chunks_processed and len(got) == reads
+    assert all(e.parent.startswith("segment[") and e.chunk is not None
+               for e in got)
+    _parents_hold(ev)
+    assert r.tracer.report()["pll.host_read"]["count"] == reads
+
+
+def test_profiler_annotations_lie_on_the_records_clock(tmp_path):
+    """torch.profiler around Runner.run() on this thread (the pump) holds
+    each pump span as a user_annotation, within 1 ms of its record mapped
+    through ``wall_offset_ns``."""
+    r = Runner(_fm_graph(tmp_path), chunk_size=4096, trace=True,
+               device="cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        r.run()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    ann = {}
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X":
+            ann.setdefault(e["name"], []).append(
+                (float(e["ts"]) + base_us, float(e["dur"])))
+    ev = r.tracer.events()
+    names = {e.name for e in ev if e.thread == "MainThread"} - {"chunk.hold"}
+    assert set(PUMP) <= names and names <= set(ann)
+    off_us = r.tracer.wall_offset_ns / 1e3
+    for name in set(ann) & {e.name for e in ev}:
+        recs = sorted(_by(ev, name=name), key=lambda e: e.t0_ns)
+        got = sorted(ann[name])
+        assert len(got) == len(recs), name
+        for (ts, dur), e in zip(got, recs):
+            t0 = e.t0_ns / 1e3 + off_us
+            t1 = e.t1_ns / 1e3 + off_us
+            assert abs(ts - t0) < 1e3 and abs(ts + dur - t1) < 1e3, \
+                (name, ts - t0, ts + dur - t1)
+
+
+def test_tracing_off_makes_no_record(tmp_path, monkeypatch):
+    """With tracing off no tracer is made, no record is added and
+    ``record_function`` is never entered, the PLL's reads included."""
+    def boom(*a, **k):
+        raise AssertionError("entered with tracing off")
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    monkeypatch.setattr(trace.Tracer, "_add", boom)
+    before = pll_hybrid.host_reads
+    r = Runner(_stereo_graph(tmp_path), chunk_size=4096, trace=False,
+               device="cpu")
+    r.run()
+    assert r.tracer is None and trace.current() is None
+    assert pll_hybrid.host_reads > before and r.chunks_processed > 1
+
+
+def test_events_stay_at_their_bound():
+    """The buffer keeps the newest ``RECORDS``; the aggregates count
+    all."""
+    t = trace.Tracer()
+    n = t.RECORDS + 10
+    for i in range(n):
+        t.record("x", i, i + 1, chunk=i)
+    ev = t.events()
+    assert len(ev) == t.RECORDS == 65536
+    assert ev[0].chunk == 10 and ev[-1].chunk == n - 1
+    assert t.report()["x"]["count"] == n
+
+
+def test_module_span_follows_the_current_tracer():
+    """``trace.span`` is a no-op without a current tracer; with one it
+    records a child of the open span, carrying its chunk."""
+    assert trace.current() is None
+    with trace.span("free"):
+        pass
+    t = trace.Tracer()
+    prev = trace.set_current(t)
+    try:
+        with t.span("outer", 7) as sp:
+            assert sp.chunk == 7
+            with trace.span("inner"):
+                pass
+        t.record("derived", 5, 9)
+    finally:
+        assert trace.set_current(prev) is t
+    assert trace.current() is prev is None
+    inner, outer, derived = t.events()
+    assert (inner.name, inner.parent, inner.chunk) == ("inner", "outer", 7)
+    assert (outer.parent, outer.chunk) == (None, 7)
+    assert _inside(inner, outer)
+    assert (derived.t0_ns, derived.t1_ns, derived.chunk) == (5, 9, None)
+    assert set(t.report()) == {"inner", "outer", "derived"}
+
+
+@pytest.mark.parametrize("name", ["Runner", "Prefetcher"])
+def test_run_sets_the_current_tracer_on_its_threads(tmp_path, name):
+    """``Runner.run`` makes its tracer current on the pump thread (and
+    restores the one before); the read-ahead thread makes it current on
+    its own."""
+    seen = {}
+    orig = Runner._read_sources if name == "Prefetcher" else \
+        Runner._run_segment
+
+    def spy(self, *a):
+        seen.setdefault("t", trace.current())
+        return orig(self, *a)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(Runner, orig.__name__, spy)
+    try:
+        r = Runner(_fm_graph(tmp_path), chunk_size=4096, trace=True,
+                   device="cpu")
+        r.run()
+    finally:
+        mp.undo()
+    assert seen["t"] is r.tracer and trace.current() is None
