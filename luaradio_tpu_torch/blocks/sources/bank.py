@@ -5,12 +5,23 @@ The reference has no multi-channel concept (one stream per graph); a bank
 of independent channels is the port's batch axis on the card.  BankSource
 adapts C ordinary host sources (files, arrays) into the [channels, time]
 layout that ``run(channels=C)`` consumes (core/runtime.py).
+
+A bank of IQ or real file sources that all share one wire format whose
+conversion is exact in float32 (8- and 16-bit integers) offers wire
+ingest (core/block.py HostSourceBlock): ``wire_read`` copies each
+child's raw wire items straight into its row of one [C, k n] array, and
+the runtime ships that array to the card, where the children's own
+converter (blocks/sources/files.py ``_make_wire_ingest``) turns it into
+the same complex64 or float32 samples ``read`` stacks on the host, bit
+for bit.  Any other bank (32-bit or float formats, mixed formats, IQ
+mixed with real, array or SDR children) keeps the host path.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from luaradio_tpu_torch.blocks.sources.files import _WireFileSource
 from luaradio_tpu_torch.core.block import HostSourceBlock
 
 
@@ -19,7 +30,12 @@ class BankSource(HostSourceBlock):
 
     All children must have the same rate and output type.  EOF is the
     earliest child EOF (the bank stays rectangular; trailing samples of
-    longer children are dropped)."""
+    longer children are dropped).
+
+    ``BankSource.wire_reads`` counts the chunks banks read as wire items
+    (module docstring)."""
+
+    wire_reads = 0
 
     def __init__(self, sources):
         super().__init__()
@@ -65,6 +81,38 @@ class BankSource(HostSourceBlock):
         if n_min == 0:
             return None
         return np.stack([r[..., :n_min] for r in rows], axis=0)
+
+    # -- wire ingest --------------------------------------------------------
+    @property
+    def _wire_factor(self) -> int:
+        return getattr(self.children[0], "_wire_factor", 1)
+
+    def device_ingest(self):
+        """The children's converter when every child is a wire file source
+        with one, all of one format and ``_wire_factor``; else None."""
+        c0 = self.children[0]
+        if not all(isinstance(s, _WireFileSource)
+                   and s.format.name == c0.format.name
+                   and s._wire_factor == c0._wire_factor
+                   for s in self.children):
+            return None
+        return c0.device_ingest()
+
+    def wire_read(self, n: int):
+        """(raw [C, k * n_min] wire items, n_min) or None at EOF: each
+        child's items copied into its row of one array, allocated afresh
+        a chunk (the read-ahead queue holds chunks in flight)."""
+        k = self._wire_factor
+        raw = np.empty((len(self.children), k * n),
+                       self.children[0]._wire_dtype)
+        n_min = n
+        for row, s in zip(raw, self.children):
+            got = s._read_wire_into(row)
+            if got == 0:
+                return None
+            n_min = min(n_min, got)
+        BankSource.wire_reads += 1
+        return raw[:, :k * n_min], n_min
 
 
 __all__ = ["BankSource"]

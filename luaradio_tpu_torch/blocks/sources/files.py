@@ -133,17 +133,38 @@ class _FileSourceBase(HostSourceBlock):
             buf += more
         return buf
 
-    def _read_bytes_mm(self, nbytes: int):
-        mm, size = self._mm, len(self._mm)
-        pos = self._mm_pos
-        end = min(pos + nbytes, size)
-        buf = mm[pos:end]
-        self._mm_pos = end
-        while self.repeat_on_eof and len(buf) < nbytes and size > 0:
-            take = min(nbytes - len(buf), size)
-            buf += mm[0:take]
-            self._mm_pos = take % size if take == size else take
-        return buf
+    def _mm_spans(self, nbytes: int):
+        """(offset, length) of each piece of the mapped file's next
+        ``nbytes``, wrapping to its start with ``repeat_on_eof``; the read
+        position moves past each piece as it is yielded."""
+        size = len(self._mm)
+        while nbytes > 0:
+            if self._mm_pos >= size:
+                if not self.repeat_on_eof:
+                    return
+                self._mm_pos = 0
+            pos = self._mm_pos
+            take = min(nbytes, size - pos)
+            self._mm_pos = pos + take
+            nbytes -= take
+            yield pos, take
+
+    def _read_bytes_mm(self, nbytes: int) -> bytes:
+        return b"".join(self._mm[p:p + t] for p, t in self._mm_spans(nbytes))
+
+    def _read_bytes_into(self, dst: np.ndarray) -> int:
+        """The next ``dst.size`` bytes, as _read_bytes reads them, written
+        into the uint8 array ``dst``; returns the count written.  A mapped
+        file is copied straight from its pages (no bytes object between)."""
+        if self._mm is None:
+            buf = self._read_bytes(dst.size)
+            dst[:len(buf)] = np.frombuffer(buf, np.uint8)
+            return len(buf)
+        got = 0
+        for p, t in self._mm_spans(dst.size):
+            dst[got:got + t] = np.frombuffer(self._mm, np.uint8, t, p)
+            got += t
+        return got
 
     # -- device-resident ring ----------------------------------------------
     def _whole_file_bytes(self):
@@ -235,17 +256,18 @@ class _WireFileSource(_FileSourceBase):
                                      complex_=self._wire_factor == 2)
         return None
 
+    @property
+    def _wire_dtype(self) -> np.dtype:
+        """wire_read's item dtype: the format's, in native byte order, u16
+        as int16."""
+        dt = self.format.dtype.newbyteorder("=")
+        return np.dtype(np.int16) if dt == np.uint16 else dt
+
     def _raw(self, buf: bytes, count: int) -> np.ndarray:
-        """``count`` wire items of ``buf`` in native byte order (u16 as
-        int16, which the wire ingest reads back)."""
-        raw = np.frombuffer(buf, dtype=self.format.dtype, count=count)
-        if self.format.dtype.byteorder == ">":
-            raw = raw.astype(self.format.dtype.newbyteorder("="))
-        if raw.dtype == np.uint16:
-            raw = raw.view(np.int16)
-        if not raw.flags.writeable:   # torch tensors need writable memory
-            raw = raw.copy()
-        return raw
+        """``count`` wire items of ``buf`` as a writable ``_wire_dtype``
+        array (u16 codes wrap to the int16 of the same bits)."""
+        return np.frombuffer(buf, dtype=self.format.dtype,
+                             count=count).astype(self._wire_dtype)
 
     def _convert(self, buf: bytes) -> np.ndarray:
         """Host conversion of whole samples of ``buf``."""
@@ -258,13 +280,19 @@ class _WireFileSource(_FileSourceBase):
         return self._convert(buf)
 
     def wire_read(self, n: int):
-        item = self.format.itemsize
-        k = self._wire_factor
-        buf = self._read_bytes(n * k * item)
-        if not buf:
-            return None
-        count = len(buf) // (k * item)
-        return self._raw(buf, count * k), count
+        out = np.empty(n * self._wire_factor, self._wire_dtype)
+        count = self._read_wire_into(out)
+        return (out[:count * self._wire_factor], count) if count else None
+
+    def _read_wire_into(self, out: np.ndarray) -> int:
+        """wire_read's items for up to ``out.size // _wire_factor`` samples
+        written into ``out`` (a contiguous row of ``_wire_dtype``);
+        returns the whole samples read (0 at EOF)."""
+        got = self._read_bytes_into(out.view(np.uint8))
+        count = got // (self._wire_factor * self.format.itemsize)
+        if self.format.dtype.byteorder == ">":
+            out[:count * self._wire_factor].byteswap(inplace=True)
+        return count
 
     def _payload_nbytes_bound(self, file_bytes: int) -> int:
         # wire-ingest formats upload the wire items (the same bytes);

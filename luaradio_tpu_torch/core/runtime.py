@@ -20,9 +20,10 @@ package's ``run(mesh=<channel mesh>, channels=C)``) runs the same graph on
 C independent channels: every device block's state is broadcast to
 (C,) + its shape and its chunks carry a leading [C] axis (device blocks
 broadcast over leading axes, as the JAX package's vmap does), BankSource
-chunks arrive as [C, n], device sources are generated once and replicated
-C times, and mid-graph host blocks run as one clone per channel on their
-row of the boundary arrays.
+chunks arrive as [C, n] (shipped as [C, k n] wire items and converted on
+the card where its file children share an exact wire format), device
+sources are generated once and replicated C times, and mid-graph host
+blocks run as one clone per channel on their row of the boundary arrays.
 
 A mesh (``Runner(..., mesh=...)``, parallel/mesh.py) with a ``"time"``
 axis of D shards splits every chunk into D consecutive shards: each
@@ -437,7 +438,9 @@ class Runner:
 
         # A host source whose outputs feed only device blocks has its
         # chunks copied to the device by the read-ahead thread, as raw
-        # wire items where the source converts exactly on the device.  A
+        # wire items where the source converts exactly on the device (a
+        # BankSource does where its children share one such format: one
+        # [C, k n] array of their items, blocks/sources/bank.py).  A
         # repeating file source among them that can hold its whole file
         # on the device (resident_setup) is read from that ring instead:
         # no host read and no host-to-device copy per chunk.

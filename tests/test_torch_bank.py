@@ -191,6 +191,192 @@ def test_bank_source_rows_and_eof_match_jax():
         tl.BankSource([_source(tl, data[0], 1e3), _source(tl, data[1], 2e3)])
 
 
+# -- BankSource wire ingest ---------------------------------------------------
+
+#: (format, numpy dtype of the file's items) of the wire-ingest cases
+_WIRE = {"u8": "u1", "s8": "i1", "u16le": "<u2", "s16be": ">i2"}
+
+
+def _every_code(dtype, count, rng):
+    """``count`` items of ``dtype`` holding every code of the type (those
+    first, shuffled, then random ones)."""
+    info = np.iinfo(np.dtype(dtype))
+    codes = rng.permutation(np.arange(info.min, info.max + 1))
+    assert count >= codes.size
+    rest = rng.integers(info.min, info.max + 1, count - codes.size)
+    return np.concatenate([codes, rest]).astype(dtype)
+
+
+def _wire_files(tmp_path, fmt, kind, lengths, rng):
+    """One file of ``fmt`` items a child, ``lengths`` samples each."""
+    k = 2 if kind == "iq" else 1
+    paths = []
+    for i, n in enumerate(lengths):
+        path = tmp_path / f"{fmt}_{kind}_{i}.bin"
+        _every_code(_WIRE[fmt], k * n, rng).tofile(path)
+        paths.append(str(path))
+    return paths
+
+
+def _file_bank(paths, fmt, kind, repeat=False, mapped=True):
+    """A BankSource of IQ or real file sources, initialized on the CPU;
+    ``mapped`` False hands each child an open file object it cannot map
+    (its bytes in memory), so it reads through ``file.read``."""
+    cls = tl.IQFileSource if kind == "iq" else tl.RealFileSource
+    files = [p if mapped else io.BytesIO(pathlib.Path(p).read_bytes())
+             for p in paths]
+    bank = tl.BankSource([cls(f, fmt, 1e3, repeat_on_eof=repeat)
+                          for f in files])
+    bank.device = torch.device("cpu")
+    bank.differentiate([])
+    bank.initialize()
+    return bank
+
+
+@pytest.mark.parametrize("mapped", [True, False])
+@pytest.mark.parametrize("repeat", [False, True])
+@pytest.mark.parametrize("kind", ["iq", "real"])
+@pytest.mark.parametrize("fmt", sorted(_WIRE))
+def test_wire_bank_equals_host_read(tmp_path, fmt, kind, repeat, mapped):
+    """The bank's wire_read through its device_ingest (on CPU tensors)
+    equals BankSource.read bit for bit, chunk by chunk: children of
+    unequal length holding every code of the format, then a short chunk
+    and EOF at the earliest child, or (repeat_on_eof) the seams of every
+    child crossed mid-chunk."""
+    rng = np.random.default_rng(sorted(_WIRE).index(fmt))
+    n0 = 1 << 16 if _WIRE[fmt][-1] == "2" else 1 << 9
+    lengths = (n0 + 300, n0, n0 + 700)
+    paths = _wire_files(tmp_path, fmt, kind, lengths, rng)
+    host = _file_bank(paths, fmt, kind, repeat, mapped)
+    wire = _file_bank(paths, fmt, kind, repeat, mapped)
+    conv = wire.device_ingest()
+    assert conv is not None
+    want = n0 // 3 + 1
+    shapes = []
+    for _ in range(2 * max(lengths) // want + 2):
+        exp, got = host.read(want), wire.wire_read(want)
+        if exp is None:
+            assert got is None
+            break
+        raw, nv = got
+        assert raw.dtype.kind in "iu" and raw.shape == (3, nv * (
+            2 if kind == "iq" else 1))
+        y = conv(torch.from_numpy(raw)).numpy()
+        assert y.dtype == exp.dtype and y.shape == exp.shape
+        assert np.array_equal(y.view(np.uint8), exp.view(np.uint8))
+        shapes.append(nv)
+    host.cleanup()
+    wire.cleanup()
+    if repeat:
+        assert shapes == [want] * len(shapes)
+        assert len(shapes) * want > 2 * max(lengths)
+    else:   # short at the earliest child's end, then EOF
+        full = n0 // want
+        assert shapes == [want] * full + [n0 - full * want]
+
+
+def _u8_iq(x):
+    w = np.round(x.view(np.float32) * 127.5 + 127.5)
+    return np.clip(w, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("children", ["f32le", "s32le", "mixed_formats",
+                                      "iq_and_real", "arrays",
+                                      "files_and_arrays"])
+def test_wire_bank_falls_back_to_the_host_path(tmp_path, children):
+    """A bank whose children do not all offer one exact wire format and
+    one wire factor has no device_ingest: the host path, unchanged."""
+    x = _iq_bank(64, c=2)
+    u8 = tmp_path / "x.u8"
+    _u8_iq(x[0]).tofile(u8)
+    f32 = tmp_path / "x.f32"
+    x[0].tofile(f32)
+    s32 = tmp_path / "x.s32"
+    np.zeros(128, "<i4").tofile(s32)
+    u8f = tl.IQFileSource(str(u8), "u8", 1e3)
+    srcs = {
+        "f32le": [tl.IQFileSource(str(f32), "f32le", 1e3)] * 2,
+        "s32le": [tl.IQFileSource(str(s32), "s32le", 1e3)] * 2,
+        "mixed_formats": [u8f, tl.IQFileSource(str(u8), "s8", 1e3)],
+        "iq_and_real": [u8f, tl.RealFileSource(str(u8), "u8", 1e3)],
+        "arrays": [_source(tl, r, 1e3) for r in x],
+        "files_and_arrays": [u8f, _source(tl, x[1], 1e3)],
+    }[children]
+    assert tl.BankSource(srcs).device_ingest() is None
+    assert tl.BankSource([u8f, u8f]).device_ingest() is not None
+
+
+def _u8_bank_graph(mod, paths, rate):
+    return _mono_graph(mod, mod.BankSource(
+        [mod.IQFileSource(p, "u8", rate) for p in paths]))
+
+
+@pytest.mark.parametrize("mode", ["fused", "eager"])
+def test_u8_bank_runner_takes_wire_ingest(tmp_path, monkeypatch, mode):
+    """A Runner over a BankSource of u8 IQFileSources with channels=C
+    ships the bank as wire items (its key in ``wire_ingest``,
+    ``BankSource.wire_reads`` one a chunk, the short last one included):
+    its rows equal bit for bit the same run with the bank forced onto the
+    host path, and lie within 2e-5 * scale of the JAX channel-mesh run."""
+    rate, n, chunk = 256e3, 4 * 4096 + 1000, 4096
+    paths = []
+    for i, x in enumerate(_iq_bank(n)):
+        paths.append(str(tmp_path / f"row{i}.u8"))
+        _u8_iq(x).tofile(paths[-1])
+
+    def run():
+        top, sink = _u8_bank_graph(tl, paths, rate)
+        r = Runner(top, mode=mode, chunk_size=chunk, channels=3, **CPU)
+        before = tl.BankSource.wire_reads
+        r.run()
+        return r, tl.BankSource.wire_reads - before, _rows(sink)
+
+    r, reads, wire = run()
+    (src,) = r.sources
+    assert list(r.wire_ingest) == [f"{r.bid[id(src)]}.0"]
+    assert reads == 5
+    assert wire.shape == (3, n // 8)
+    with monkeypatch.context() as mp:
+        mp.setattr(tl.BankSource, "device_ingest", lambda self: None)
+        r, reads, host = run()
+    assert r.wire_ingest == {} and reads == 0
+    assert np.array_equal(wire, host)
+    top, sink = _u8_bank_graph(jl, paths, rate)
+    top.run(chunk_size=chunk, mesh=_mesh(1), channels=3)
+    _close(wire, _rows(sink), 2e-5)
+
+
+@pytest.mark.parametrize("mesh_shape", [(3, 1), (1, 4), (3, 4)])
+def test_u8_bank_on_a_mesh_equals_the_unsharded_run(tmp_path, mesh_shape):
+    """The wire bank under a ("channel", "time") mesh: the conversion
+    runs before the time shards are split, so the rows equal the
+    unsharded wire run's within 1e-5 * scale (the time-sharded
+    recurrences' bound, tests/test_torch_time_runner.py) and the same
+    mesh's run on the host path bit for bit."""
+    rate, n, chunk = 256e3, 4 * 4096, 4096
+    paths = []
+    for i, x in enumerate(_iq_bank(n)):
+        paths.append(str(tmp_path / f"row{i}.u8"))
+        _u8_iq(x).tofile(paths[-1])
+
+    def run(mesh=None, wire=True):
+        top, sink = _u8_bank_graph(tl, paths, rate)
+        with pytest.MonkeyPatch.context() as mp:
+            if not wire:
+                mp.setattr(tl.BankSource, "device_ingest",
+                           lambda self: None)
+            r = Runner(top, chunk_size=chunk, mesh=mesh, channels=3, **CPU)
+        assert bool(r.wire_ingest) is wire
+        r.run()
+        return _rows(sink)
+
+    ref = run()
+    mesh = PortMesh(mesh_shape, ("channel", "time"))
+    got = run(mesh)
+    assert np.array_equal(got, run(mesh, wire=False))
+    _close(got, ref, 1e-5)
+
+
 # -- run(channels=C) ----------------------------------------------------------
 
 def test_banked_device_source_graph_matches_jax():

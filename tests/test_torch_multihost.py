@@ -23,7 +23,11 @@ tests/parallel/test_multihost.py and bench_multihost.py:
   recovery -> sampler -> slicer -> Manchester bank (host clones for the
   local channels only) and the full RDSReceiver bank; every channel's
   output equals its serial run and the JAX package's channel mesh
-  exactly.
+  exactly;
+* a bank of four u8 files (raw wire items of all rows in one array,
+  converted on the device) on that channel mesh and on a ("time",
+  "channel") mesh whose time axis spans both processes: each process's
+  rows, or its block of every row, equal the serial bank run within 1e-5.
 
 Run as a script, this file is one worker: ``python
 tests/test_torch_multihost.py RANK DIR``.
@@ -114,6 +118,17 @@ def _bank_graph(mod, kind, src, sink):
     return top
 
 
+def _u8_bank(mod, d):
+    return mod.BankSource([mod.IQFileSource(str(d / f"b{c}.u8"), "u8", 256e3)
+                           for c in range(CHANNELS)])
+
+
+def _u8_bank_meshes(group):
+    return (("u8bank_channel", Mesh((CHANNELS,), ("channel",), group=group)),
+            ("u8bank_time", Mesh((SHARDS, CHANNELS), ("time", "channel"),
+                                 group=group)))
+
+
 # -- the worker ---------------------------------------------------------------
 
 def _worker(rank: int, d: Path):
@@ -146,6 +161,13 @@ def _worker(rank: int, d: Path):
                    mesh=chan_mesh, device="cpu")
         r.run()
         out[kind] = (r._chan_local, sink.got)
+    for name, mesh in _u8_bank_meshes(group):
+        sink = _collector(tl)
+        r = Runner(_chain(tl, _u8_bank(tl, d), sink), chunk_size=CHUNK,
+                   mesh=mesh, device="cpu")
+        wire = bool(r.wire_ingest)
+        r.run()
+        out[name] = (wire, r._chan_local, sink.got)
     with open(d / f"rank{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
     torch.distributed.destroy_process_group()
@@ -172,6 +194,11 @@ def _inputs(d: Path):
                   for _ in range(4)]
         make_rds_fm(6 * CHUNK, groups).astype(np.complex64).tofile(
             d / f"rds{c}.iq")
+    brng = np.random.default_rng(12)
+    for c in range(CHANNELS):
+        b = np.exp(1j * 0.3 * np.cumsum(brng.standard_normal(n)))
+        w = np.round(b.astype(np.complex64).view(np.float32) * 127.5 + 127.5)
+        np.clip(w, 0, 255).astype(np.uint8).tofile(d / f"b{c}.u8")
 
 
 @pytest.fixture(scope="module")
@@ -305,6 +332,40 @@ def test_channel_split_over_two_processes_equals_serial(workers, kind):
         assert all(len(_flat(refs[c])) >= 3 for c in range(CHANNELS))
     else:
         assert all(len(_flat(refs[c])) >= 100 for c in range(CHANNELS))
+
+
+@pytest.mark.parametrize("name", ["u8bank_channel", "u8bank_time"])
+def test_u8_bank_split_over_two_processes_equals_serial(workers, name):
+    """A u8 bank takes wire ingest across processes too: over channels
+    each process converts and runs its two rows, over time its half of
+    every row's chunk; reassembled, the rows equal the serial bank run
+    within 1e-5 (the time split's bound above)."""
+    d, res = workers
+    sink = _collector(tl)
+    r = Runner(_chain(tl, _u8_bank(tl, d), sink), chunk_size=CHUNK,
+               channels=CHANNELS, device="cpu")
+    assert r.wire_ingest
+    r.run()
+    ref = np.concatenate(sink.got, axis=-1)
+    assert ref.shape == (CHANNELS, N_CHUNKS * CHUNK // DECIM)
+    blocks = []
+    for p, out in enumerate(res):
+        wire, (lo, hi), got = out[name]
+        assert wire
+        if name == "u8bank_channel":
+            assert (lo, hi) == (2 * p, 2 * p + 2)
+        else:
+            assert (lo, hi) == (0, CHANNELS)
+        blocks.append(np.concatenate(got, axis=-1))
+    if name == "u8bank_channel":
+        got = np.concatenate(blocks, axis=0)
+    else:   # each process's half of every chunk, chunk by chunk
+        half = CHUNK // DECIM // NPROC
+        got = np.concatenate([b[:, i * half:(i + 1) * half]
+                              for i in range(N_CHUNKS) for b in blocks],
+                             axis=-1)
+    assert got.shape == ref.shape
+    assert float(np.max(np.abs(got - ref))) < 1e-5
 
 
 def test_a_single_process_mesh_is_not_multihost():
