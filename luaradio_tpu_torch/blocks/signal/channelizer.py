@@ -14,6 +14,11 @@ Math (standard critically-sampled analysis PFB, e.g. arXiv:1411.3656):
 C polyphase branch FIRs on decimated streams and a length-C inverse FFT
 across the branches, scaled by C.  Stock torch ops: the JAX block reaches
 no Pallas kernel.
+
+Tracing (core/trace.py): each chunk's work is the span
+``channelizer.dispatch`` and, on a CUDA card, its device time the span
+``channelizer.device``; ``ChannelizerBlock.rows_emitted`` counts the
+channel rows emitted.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from luaradio_tpu_torch.core import trace
 from luaradio_tpu_torch.core.block import Input, Output, SignalBlock
 from luaradio_tpu_torch.types import ComplexFloat32
 from luaradio_tpu_torch.utils import filter_design
@@ -37,6 +43,9 @@ class ChannelizerBlock(SignalBlock):
     ``taps_per_branch`` sets the prototype lowpass length
     (num_channels * taps_per_branch taps, cutoff at rate / (2C)).  The
     state is the last C * taps_per_branch input samples."""
+
+    #: channel rows emitted by every channelizer in the process (a counter)
+    rows_emitted = 0
 
     def __init__(self, num_channels: int, taps_per_branch: int = 8,
                  window: str = "hamming"):
@@ -73,6 +82,13 @@ class ChannelizerBlock(SignalBlock):
                            dtype=torch.complex64, device=self.device)
 
     def process(self, state, x):
+        with trace.device_span("channelizer.dispatch", "channelizer.device",
+                               x.device):
+            state, y = self._channelize(state, x)
+        ChannelizerBlock.rows_emitted += y[..., 0].numel()
+        return state, y
+
+    def _channelize(self, state, x):
         c, q = self.num_channels, self.taps_per_branch
         k = c * q
         m = x.shape[-1] // c

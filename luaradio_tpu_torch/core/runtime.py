@@ -52,7 +52,9 @@ read-ahead thread records ``sources.read`` and ``sources.h2d`` (the pump
 does, in eager mode or where every source is device-resident), and the
 pump ``sources.wait``, ``segment[i].dispatch`` (with the PLL's
 ``pll.host_read`` inside), ``chunk.hold`` (pipelined mode),
-``host.d2h_wait`` and ``host[i].process`` for stages with host blocks.
+``host.d2h_wait`` and ``host[i].process`` for stages with host blocks;
+after a chunk's ``host.d2h_wait`` it resolves the device spans its ops
+queued (``channelizer.device``), which then wait for nothing.
 Every span carries the sequence number of its chunk, assigned in read
 order, so one chunk's records join on it (``Runner.tracer.events()``).
 """
@@ -781,6 +783,8 @@ class Runner:
         after waiting for its copies."""
         values, nvalid, _, fetches, seq, _ = dispatched
         self._traced("host.d2h_wait", seq, self._wait_copies, fetches)
+        if self.tracer is not None:
+            self.tracer.resolve_device(seq)
         for i, (_, host_blocks) in enumerate(self.stage_plan):
             if host_blocks:
                 self._traced(f"host[{i}].process", seq, self._run_hosts,
@@ -802,6 +806,8 @@ class Runner:
             if host_blocks:
                 self._traced(f"host[{i}].process", seq, self._run_hosts,
                              host_blocks, values, nvalid)
+        if self.tracer is not None:
+            self.tracer.resolve_device(seq)
         self.chunks_processed += 1
         return not eof
 
@@ -847,6 +853,8 @@ class Runner:
                         break
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            if self.tracer is not None:
+                self.tracer.resolve_device()
         except BaseException as exc:
             self.error = exc
             raise

@@ -12,6 +12,8 @@ and the chunk it carries:
     sources.wait            pump        -                       chunk
     segment[i].dispatch     pump        -                       chunk
     pll.host_read           pump        segment[i].dispatch     host read
+    channelizer.dispatch    pump        segment[i].dispatch     chunk
+    channelizer.device      pump (card) channelizer.dispatch    chunk
     chunk.hold              pump        -                       chunk
     host.d2h_wait           pump        -                       chunk
     host[i].process         pump        -                       chunk
@@ -23,7 +25,17 @@ for the read-ahead thread's next chunk (fused mode only).
 ``segment[i].dispatch`` queues stage i's device work; it times the host's
 queueing, not the card, except where an op reads the card on the host:
 ``pll.host_read`` is one such read of the PLL's guards (ops/pll_linear.py),
-which waits for every kernel queued before it.  ``chunk.hold`` is the
+which waits for every kernel queued before it.  ``channelizer.dispatch``
+queues the polyphase channelizer's work (blocks/signal/channelizer.py),
+and on a CUDA device ``channelizer.device`` is that work's time on the
+card: a pair of CUDA events recorded on the pump's stream before and after
+its launches (:meth:`Tracer.device_span`), from the start event to the end
+one, so it also holds any wait of the card for those launches where the
+card runs ahead of the host.  The pair is resolved after the chunk's
+``host.d2h_wait`` (:meth:`Tracer.resolve_device`): the copies back were
+queued after it on the same stream, so both events are done and reading
+them waits for nothing.  On the CPU, and with no tracer, there is no
+pair.  ``chunk.hold`` is the
 pipelined pump's hold of a chunk: from the end of its last dispatch to the
 start of its host tail, while the previous chunk's host tail runs and the
 next chunk is waited for and dispatched, one pump cycle (a derived
@@ -35,7 +47,11 @@ stage i's host blocks (only stages that have some).
 Each span adds to an aggregate by name (count/total/mean/min/max,
 :meth:`Tracer.report`) and appends one record ``Span(name, chunk, parent,
 thread, t0_ns, t1_ns)`` to a bounded buffer (the newest ``RECORDS``,
-:meth:`Tracer.events`), on ``time.perf_counter_ns()``.  ``chunk`` is the
+:meth:`Tracer.events`), on ``time.perf_counter_ns()``; a device span's
+record is made on the thread that resolves it and ends there, its length
+the card's time.  The counter ``ChannelizerBlock.rows_emitted`` counts
+the channel rows the channelizer has emitted (C a chunk, times any batch
+in front).  ``chunk`` is the
 chunk's sequence number from 0, assigned by the reader in read order; a
 span opened without one carries its parent's.  To ask why chunk k was
 late, join its records on ``chunk == k``: its read and copy, the pump's
@@ -111,6 +127,8 @@ class Tracer:
         #: ``time.time_ns() - time.perf_counter_ns()``: a record's time
         #: plus this is on the clock of a torch.profiler chrome trace
         self.wall_offset_ns = time.time_ns() - time.perf_counter_ns()
+        # device spans (name, chunk, parent, start, end) not yet resolved
+        self._device: list = []
 
     def _stack(self) -> list:
         loc = self._local
@@ -140,6 +158,46 @@ class Tracer:
             t1 = time.perf_counter_ns()
             stack.pop()
             self._add(name, sp.chunk, parent and parent.name, t0, t1)
+
+    @contextlib.contextmanager
+    def device_span(self, name: str, device_name: str, device):
+        """Host span ``name`` around the block; on a CUDA ``device`` also a
+        pair of CUDA events on its current stream around the work the block
+        queues, kept until :meth:`resolve_device` records it as span
+        ``device_name`` (a child of ``name``, of the same chunk)."""
+        with self.span(name) as sp:
+            if device.type != "cuda":
+                yield sp
+                return
+            import torch
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            yield sp
+            end.record(stream)
+            with self._lock:
+                self._device.append((device_name, sp.chunk, name, start, end))
+
+    def resolve_device(self, upto: int | None = None):
+        """Record each pending device span of a chunk up to ``upto`` (every
+        chunk with None) whose end event has completed; the rest stay
+        pending.  Never waits on the card."""
+        self._stack()
+        with self._lock:
+            pending, self._device = self._device, []
+        keep = []
+        for item in pending:
+            name, chunk, parent, start, end = item
+            if (upto is not None and chunk is not None and chunk > upto) \
+                    or not end.query():
+                keep.append(item)
+                continue
+            t1 = time.perf_counter_ns()
+            self._add(name, chunk, parent,
+                      t1 - round(start.elapsed_time(end) * 1e6), t1)
+        with self._lock:
+            self._device[:0] = keep
 
     def record(self, name: str, t0_ns: int, t1_ns: int,
                chunk: int | None = None):
@@ -199,10 +257,18 @@ def span(name: str):
     return _NULL if t is None else t.span(name)
 
 
+def device_span(name: str, device_name: str, device):
+    """Host span ``name`` and device span ``device_name`` on this thread's
+    current tracer (:meth:`Tracer.device_span`); a no-op context where
+    there is none."""
+    t = getattr(_current, "tracer", None)
+    return _NULL if t is None else t.device_span(name, device_name, device)
+
+
 def enabled_by_env() -> bool:
     v = os.environ.get("LUARADIO_TPU_TRACE", "")
     return v not in ("", "0", "false")
 
 
-__all__ = ["Span", "Tracer", "current", "enabled_by_env", "set_current",
-           "span"]
+__all__ = ["Span", "Tracer", "current", "device_span", "enabled_by_env",
+           "set_current", "span"]

@@ -1,10 +1,13 @@
 """The runtime's span records (luaradio_tpu_torch/core/trace.py): chunk
 ids and parents on every span of the pump and the read-ahead thread, the
 pipelined hold, the PLL's host reads as children of their dispatch, the
-same spans as torch.profiler annotations on the records' clock, nothing
-made with tracing off, and the bounded buffer (CPU)."""
+channelizer's dispatch span and its device span (resolved from CUDA
+events, here fakes), the same spans as torch.profiler annotations on the
+records' clock, nothing made with tracing off, and the bounded buffer
+(CPU)."""
 
 import json
+import math
 
 import numpy as np
 import pytest
@@ -253,6 +256,109 @@ def test_module_span_follows_the_current_tracer():
     assert _inside(inner, outer)
     assert (derived.t0_ns, derived.t1_ns, derived.chunk) == (5, 9, None)
     assert set(t.report()) == {"inner", "outer", "derived"}
+
+
+def _band_graph(tmp_path, n=8 * 4096):
+    """IQ file -> ChannelizerBlock(8) -> discriminator -> a host sink."""
+    rng = np.random.default_rng(23)
+    x = np.exp(1j * np.cumsum(rng.uniform(-0.3, 0.3, n)))
+    top = tl.CompositeBlock()
+    top.connect(tl.IQFileSource(_iq_file(tmp_path, x), "f32le", 8e5),
+                tl.ChannelizerBlock(8, 4), tl.FrequencyDiscriminatorBlock(1.0),
+                _Collect())
+    return top
+
+
+def test_channelizer_dispatch_once_a_chunk(tmp_path):
+    """With a tracer on the CPU: one ``channelizer.dispatch`` a chunk,
+    inside its segment's dispatch and of its chunk; no
+    ``channelizer.device`` (no card); the rows counter counts C a
+    chunk."""
+    from luaradio_tpu_torch.blocks.signal.channelizer import ChannelizerBlock
+    before = ChannelizerBlock.rows_emitted
+    r = Runner(_band_graph(tmp_path), chunk_size=8 * 512, trace=True,
+               device="cpu")
+    r.run()
+    ev = r.tracer.events()
+    rep = r.tracer.report()
+    assert r.chunks_processed == 8
+    assert rep["channelizer.dispatch"]["count"] == r.chunks_processed
+    assert "channelizer.device" not in rep
+    for k in range(r.chunks_processed):
+        rec = _one(ev, "channelizer.dispatch", k)
+        assert rec.parent.startswith("segment[")
+        assert _inside(rec, _one(ev, rec.parent, k))
+    assert ChannelizerBlock.rows_emitted - before == 8 * r.chunks_processed
+
+
+def test_channelizer_untraced_records_nothing(tmp_path, monkeypatch):
+    """With no tracer the channelizer opens no span and makes no device
+    span: ``Tracer.device_span`` is never entered."""
+    def boom(*a, **k):
+        raise AssertionError("entered with tracing off")
+    monkeypatch.setattr(trace.Tracer, "device_span", boom)
+    monkeypatch.setattr(trace.Tracer, "_add", boom)
+    r = Runner(_band_graph(tmp_path), chunk_size=8 * 512, trace=False,
+               device="cpu")
+    r.run()
+    assert r.tracer is None and r.chunks_processed == 8
+
+
+class _FakeEvent:
+    """A CUDA event: recorded on a stream, done when ``done`` is set, the
+    time between two events in ms."""
+    clock = 0.0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.done, self.at = False, None
+
+    def record(self, stream=None):
+        _FakeEvent.clock += 1.5
+        self.at = _FakeEvent.clock
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        assert self.done and end.done
+        return end.at - self.at
+
+
+def test_device_span_resolved_after_its_chunk(monkeypatch):
+    """A device span's pair of events is kept until ``resolve_device``
+    reaches its chunk and its end event is done, then recorded as a child
+    of its host span with the events' time; a chunk not yet reached, or
+    an end not yet done, stays pending, and reading them never waits."""
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    t = trace.Tracer()
+    cuda = torch.device("cuda")
+    pairs = []
+    prev = trace.set_current(t)
+    try:
+        for k in (3, 4):
+            with t.span("segment[1].dispatch", k):
+                with trace.device_span("a.dispatch", "a.device", cuda):
+                    pass
+                pairs.append(t._device[-1][3:])
+    finally:
+        trace.set_current(prev)
+    t.resolve_device(3)
+    assert "a.device" not in t.report()     # chunk 3's end not yet done
+    for start, end in pairs:
+        start.done = end.done = True
+    t.resolve_device(3)
+    assert t.report()["a.device"]["count"] == 1
+    t.resolve_device()
+    rep = t.report()["a.device"]
+    assert rep["count"] == 2 and math.isclose(rep["total_s"], 3e-3)
+    recs = _by(t.events(), name="a.device")
+    assert [(e.chunk, e.parent) for e in recs] == [(3, "a.dispatch"),
+                                                  (4, "a.dispatch")]
+    assert all(e.t1_ns - e.t0_ns == 1500000 for e in recs)
+    assert t._device == []
+    assert _one(t.events(), "a.dispatch", 4).parent == "segment[1].dispatch"
 
 
 @pytest.mark.parametrize("name", ["Runner", "Prefetcher"])
