@@ -121,11 +121,20 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     S/s and rx_ert --protocols=scm at 2 359 296 S/s through the CLI, each
     message equal to the one sent, and BPSK31Receiver as a graph at
     8000 S/s, whose text must come out;
+13a. channelizer: the polyphase channelizer kernel
+    (csrc/channelizer.cu) at the band cell's chunk ([1, 8 192 000], C
+    100, q 16) and the bank-mono chunk ([1, 1 048 576], C 64, q 8), held
+    against its twin (the stock path) over chained chunks (full, ragged,
+    shorter than C q) and a batch of 3 rows (new states equal, channels
+    within 2e-6 of their full scale); timed back to back, as device
+    time (CUDA-graph replay) and a launch beside the twin and its bound;
 14. bank-mono: the channelizer bank at full width, a 2 s capture at
     16 384 000 S/s (8 WBFM stations with their own tones on channel bins
     over both halves of the span, ~30 dB SNR in a channel) -> ChannelizerBlock
     (64, 8) -> WBFMMonoDemodulator -> Downsampler(8) in chunks of 64 x
-    16 384 (examples/wideband_channelizer_bank.py at 64 channels): each
+    16 384 (examples/wideband_channelizer_bank.py at 64 channels), the
+    channelizer kernel launched once a chunk (the kernels line's
+    ``channelize`` launches; no chunk on the stock path): each
     tone within 50 Hz on its row, its tone bin > 100x the quiet rows'
     median there; again under the K2 rule, where K2 must launch once a
     chunk on all 64 rows, match its twin on the path's first chunk and
@@ -257,6 +266,7 @@ import dataclasses
 import faulthandler
 import io
 import json
+import math
 import os
 import socket
 import statistics
@@ -296,8 +306,9 @@ from luaradio_tpu_torch.benchmarks import pll_ablate as pbench_pll
 from luaradio_tpu_torch.benchmarks import wbfm_proto as pbench_s4
 from luaradio_tpu_torch.blocks.signal import carrier
 from luaradio_tpu_torch.core.runtime import Runner
-from luaradio_tpu_torch.ops import (cudabuild, pll, pll_ablate, pll_overlap,
-                                   roofline, wbfm, wbfm_proto, window)
+from luaradio_tpu_torch.ops import (channelizer, cudabuild, pll, pll_ablate,
+                                   pll_overlap, roofline, wbfm, wbfm_proto,
+                                   window)
 from luaradio_tpu_torch.ops.complexutil import (complex_to_wire,
                                                 wire_to_complex)
 from luaradio_tpu_torch.ops.fir import _conv_real
@@ -2168,6 +2179,145 @@ def tone_bin_power(a, rate, tone):
         f[k]
 
 
+#: the channelizer phase's shapes, (rows, samples, C, q): the band cell's
+#: chunk and the bank-mono phase's
+PFB_SHAPES = ((1, 8192000, 100, 16), (1, BANK_C * 16384, BANK_C, 8))
+
+
+def back_to_back_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Time of one call: ``n`` calls back to back between two CUDA events,
+    the median of ``reps`` such runs over ``n`` (the card's time where a
+    call's work outlasts its host time, the host's where it does not)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def _pfb_branch(c, q, dev):
+    blk = ChannelizerBlock(c, q)
+    blk.device = dev
+    blk.initialize()
+    return blk._branch
+
+
+def _pfb_gap(y, ry):
+    """Largest deviation of y from ry over each channel's full scale."""
+    scale = ry.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return ((y - ry).abs() / scale).max().item() if ry.numel() else 0.0
+
+
+def _pfb_hold(label, state, x, branch):
+    """One chunk through the kernel and its twin from the same state: the
+    new states equal, every channel within 2e-6 of its full scale; both
+    also against the twin in float64.  Returns (kernel's new state, the
+    largest deviation over a channel's scale)."""
+    n0 = channelizer.channelize.launches
+    st, y = channelizer.channelize(state, x, branch)
+    rst, ry = channelizer.channelize_reference(state, x, branch)
+    _, fy = channelizer.channelize_reference(
+        state.to(torch.complex128), x.to(torch.complex128), branch.double())
+    torch.cuda.synchronize()
+    if channelizer.channelize.launches != n0 + 1:
+        raise AssertionError(f"channelizer {label}: no kernel launch")
+    if y.shape != ry.shape or not torch.isfinite(torch.view_as_real(y)).all():
+        raise AssertionError(f"channelizer {label}: output {tuple(y.shape)}")
+    if not torch.equal(st, rst.contiguous()):
+        raise AssertionError(f"channelizer {label}: new state differs")
+    err = _pfb_gap(y, ry)
+    if err > 2e-6:
+        raise AssertionError(f"channelizer {label}: |kernel - twin| = "
+                             f"{err:.3g} of a channel's full scale > 2e-6")
+    log("channelizer", f"{label}: x {tuple(x.shape)} -> {tuple(y.shape)}, "
+                       f"max |kernel - twin| {err:.3g} of the channel's "
+                       f"full scale (limit 2e-6); against float64: kernel "
+                       f"{_pfb_gap(y, fy):.3g}, twin {_pfb_gap(ry, fy):.3g}; "
+                       f"new state equal")
+    return st, err
+
+
+def phase_channelizer(dev, gen, smi):
+    """The polyphase channelizer kernel (csrc/channelizer.cu) at the band
+    cell's chunk ([1, 8 192 000], C 100, q 16) and the bank-mono phase's
+    ([1, 1 048 576], C 64, q 8), on complex white noise: held against its
+    twin (the stock path) over chained chunks (full, ragged, shorter than
+    C q, full) and on a batch of 3 rows, each also against the twin in
+    float64.  Then
+    timed: 20 launches back to back (median of 5), device time by
+    CUDA-graph replay, and a launch (median of 25), beside the twin (the
+    stock path, so also the library yardstick) and the bound (16 B a
+    sample at 3.35 TB/s, or channelizer_work's operations at 67
+    TFLOP/s).  Returns the kernel's entry for the kernels line."""
+    rows_out, errs = [], []
+    for rows, n, c, q in PFB_SHAPES:
+        branch = _pfb_branch(c, q, dev)
+        k = c * q
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        p = channelizer.plan(c, q, n // c, rows, sms)
+        z = torch.randn(3 * n + n // 3, generator=gen, device=dev,
+                        dtype=torch.complex64)
+        st = torch.zeros(k, dtype=torch.complex64, device=dev)
+        for label, x in ((f"C {c} q {q} chunk", z[:n]),
+                         (f"C {c} q {q} ragged", z[n:n + c * 7 + 3]),
+                         (f"C {c} q {q} short", z[n + c * 7 + 3:
+                                                   n + c * 7 + 3 + k // 2]),
+                         (f"C {c} q {q} chunk after", z[2 * n:3 * n])):
+            st, err = _pfb_hold(label, st, x.contiguous(), branch)
+            errs.append(err)
+        xb = torch.randn((3, n // 8), generator=gen, device=dev,
+                         dtype=torch.complex64)
+        sb = torch.randn((3, k), generator=gen, device=dev,
+                         dtype=torch.complex64)
+        errs.append(_pfb_hold(f"C {c} q {q} batch", sb, xb, branch)[1])
+        x = z[:n].contiguous()
+        s0 = torch.zeros(k, dtype=torch.complex64, device=dev)
+        run = lambda: channelizer.channelize(s0, x, branch)  # noqa: E731
+        twin = lambda: channelizer.channelize_reference(  # noqa: E731
+            s0, x, branch)
+        ms = back_to_back_ms(run)
+        dev_ms = graph_ms(run)
+        launch_ms = median_ms(run)
+        plain_ms = back_to_back_ms(twin)
+        nbytes = 16.0 * rows * n
+        ops = rows * n * (4.0 * q + 5.0 * math.log2(c) + 2.0)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+        bound_ms = 1e3 * max(t_bytes, t_ops)
+        log("channelizer", f"[{rows} x {n}] C {c} q {q}, plan {p}: "
+                           f"{ms:.4f} ms (20 back to back, median of 5; "
+                           f"host-bound where a launch's host time is "
+                           f"longer), device {dev_ms:.4f} ms (CUDA-graph "
+                           f"replay), {launch_ms:.4f} ms a launch (median of "
+                           f"{REPS}); twin (the stock path) {plain_ms:.4f} "
+                           f"ms; bound {bound_ms:.4f} ms "
+                           f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+                           f"{ops / 1e9:.3f} Gop at 67 TFLOP/s): device "
+                           f"{100 * bound_ms / dev_ms:.1f} % of it; {smi}")
+        rows_out.append({"shape": [rows, n, c, q], "ms": ms,
+                         "graph_ms": dev_ms,
+                         "launch_ms": launch_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms,
+                         "bound_by": "bytes" if t_bytes >= t_ops
+                         else "operations", "plan": p._asdict()})
+    band = rows_out[0]
+    return {"name": "channelize", "route": "cuda",
+            "source": "luaradio_tpu_torch/csrc/channelizer.cu",
+            "replaces": "none (the JAX ChannelizerBlock reaches no "
+                        "pallas_call; the port's stock-torch body)",
+            "max_abs_err": max(errs), "ms": band["ms"],
+            "plain_ms": band["plain_ms"], "bound_ms": band["bound_ms"],
+            "bound_by": band["bound_by"], "library_ms": band["plain_ms"],
+            "shapes": rows_out}
+
+
 def phase_bank_mono(tmp, dev, profile=None):
     """The channelizer bank at full width: a BANK_S s capture at
     BANK_RATE through bank_mono_graph, chunks of 64 x 16 384.  Each
@@ -2185,7 +2335,16 @@ def phase_bank_mono(tmp, dev, profile=None):
                      f"stations on bins {sorted(tones)}")
     top, _ = bank_mono_graph(path)
     Runner(top, chunk_size=BANK_C * 16384, device=dev).run(max_chunks=2)
+    channelizer.channelize.launches = 0
+    stock0 = ChannelizerBlock.stock_chunks
     audio, dt = run_bank_mono(path, dev)
+    pfb_launches = channelizer.channelize.launches
+    if pfb_launches != -(-n // (BANK_C * 16384)) \
+            or ChannelizerBlock.stock_chunks != stock0:
+        raise AssertionError(f"bank-mono: {pfb_launches} channelizer kernel "
+                             f"launches over {-(-n // (BANK_C * 16384))} "
+                             f"chunks, {ChannelizerBlock.stock_chunks - stock0}"
+                             f" on the stock path")
     rate = BANK_RATE / BANK_C / 8
     quiet = [c for c in range(BANK_C) if c not in tones]
     if audio.shape != (BANK_C, n // BANK_C // 8) \
@@ -2207,7 +2366,9 @@ def phase_bank_mono(tmp, dev, profile=None):
                      f"median (limit 100); whole-band audio power of the "
                      f"station rows over the quiet rows' median "
                      f"{band.min():.3g}-{band.max():.3g}x (not held); "
-                     f"{n / dt / 1e6:.2f} M complex samples/s end to end")
+                     f"{pfb_launches} channelizer kernel launches, one a "
+                     f"chunk; {n / dt / 1e6:.2f} M complex samples/s end to "
+                     f"end")
     calls = []
     os.environ["LUARADIO_TPU_FORCE_WBFM_KERNEL"] = "1"
     top, _ = bank_mono_graph(path)
@@ -2251,7 +2412,7 @@ def phase_bank_mono(tmp, dev, profile=None):
                     f"{profile}.bank_mono.txt", "bank-mono")
     return {"launches": launches, "chunks": chunks, "max_abs_err": err,
             **timed, "graph_ms": k2_dev_ms, "sps": n / dt,
-            "k2_sps": n / k2_dt}
+            "k2_sps": n / k2_dt, "pfb_launches": pfb_launches}
 
 
 def write_stereo_bank(tmp, dev):
@@ -5153,8 +5314,11 @@ def main(argv):
     overlap["max_abs_err"] = max(overlap["max_abs_err"], rds["overlap_err"])
     rds_packets = rds["packets"]
     del rds
+    pfb = phase_channelizer(dev, gen, smi)
     with tempfile.TemporaryDirectory() as tmp:
         mono = phase_bank_mono(tmp, dev, profile)
+    # the kernel's launches on the bank-mono path, one a chunk
+    pfb["launches"] = mono.pop("pfb_launches")
     k2["bank_mono_path"] = mono
     k2["max_abs_err"] = max(k2["max_abs_err"], mono["max_abs_err"])
     with tempfile.TemporaryDirectory() as tmp:
@@ -5237,7 +5401,10 @@ def main(argv):
     log("fir-fft", json.dumps({"device": smi, **fir_fft}))
     with tempfile.TemporaryDirectory() as tmp:
         phase_entries(tmp, dev, smi, k1)
-    entries = [k1, k2, k3, overlap] + rfl + probes
+    if ChannelizerBlock.stock_chunks:
+        raise AssertionError(f"{ChannelizerBlock.stock_chunks} channelizer "
+                             f"chunks ran on the stock path")
+    entries = [k1, k2, k3, overlap, pfb] + rfl + probes
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(

@@ -11,18 +11,25 @@ Math (standard critically-sampled analysis PFB, e.g. arXiv:1411.3656):
     y_c[m] = sum_k h[k] x[mC - k] e^{+j 2 pi c k / C}
            = IDFT_p->c ( v_p[m] ),  v_p[m] = sum_q h[qC+p] x[(m-q)C - p]
 
-C polyphase branch FIRs on decimated streams and a length-C inverse FFT
-across the branches, scaled by C.  Stock torch ops: the JAX block reaches
-no Pallas kernel.
+C polyphase branch FIRs on decimated streams and a length-C inverse DFT
+across the branches, unnormalised.  On a CUDA card one hand-written
+kernel does it all in one pass (ops/channelizer.py ``channelize``,
+csrc/channelizer.cu), for every (C, q) its ``fits`` takes; other shapes,
+and the CPU, take the stock-torch twin (``channelize_reference``: q
+strided multiply-adds and an ifft scaled by C).  The JAX block reaches no
+Pallas kernel.
 
 Tracing (core/trace.py): each chunk's work is the span
 ``channelizer.dispatch`` and, on a CUDA card, its device time the span
 ``channelizer.device``; ``ChannelizerBlock.rows_emitted`` counts the
-channel rows emitted.
+channel rows emitted, ``channelize.launches`` (ops/channelizer.py) the
+kernel's launches and ``ChannelizerBlock.stock_chunks`` the chunks a card
+ran on the stock path (a shape ``fits`` refuses, ~30x slower).
 """
 
 from __future__ import annotations
 
+import math
 from fractions import Fraction
 
 import numpy as np
@@ -30,6 +37,7 @@ import torch
 
 from luaradio_tpu_torch.core import trace
 from luaradio_tpu_torch.core.block import Input, Output, SignalBlock
+from luaradio_tpu_torch.ops import channelizer
 from luaradio_tpu_torch.types import ComplexFloat32
 from luaradio_tpu_torch.utils import filter_design
 
@@ -46,6 +54,9 @@ class ChannelizerBlock(SignalBlock):
 
     #: channel rows emitted by every channelizer in the process (a counter)
     rows_emitted = 0
+    #: chunks a CUDA card ran on the stock path, every channelizer in the
+    #: process (a counter)
+    stock_chunks = 0
 
     def __init__(self, num_channels: int, taps_per_branch: int = 8,
                  window: str = "hamming"):
@@ -76,6 +87,7 @@ class ChannelizerBlock(SignalBlock):
         hp = proto.astype(np.float64).reshape(q, c).T.astype(np.float32)
         self._branch = torch.from_numpy(
             np.ascontiguousarray(hp[:, ::-1])).to(self.device)   # [C, q]
+        self._kernel = channelizer.fits(c, q)
 
     def init_state(self):
         return torch.zeros((self.num_channels * self.taps_per_branch,),
@@ -85,30 +97,17 @@ class ChannelizerBlock(SignalBlock):
         with trace.device_span("channelizer.dispatch", "channelizer.device",
                                x.device):
             state, y = self._channelize(state, x)
-        ChannelizerBlock.rows_emitted += y[..., 0].numel()
+        ChannelizerBlock.rows_emitted += math.prod(y.shape[:-1])
         return state, y
 
     def _channelize(self, state, x):
-        c, q = self.num_channels, self.taps_per_branch
-        k = c * q
-        m = x.shape[-1] // c
-        lead = x.shape[:-1]
-        # xin[k + t] = x[t]; output m' reads xin[k + m'C - k'], k' < K, so
-        # every index lies in [1, k + (m-1)C]
-        xin = torch.cat([state.to(x.dtype).expand(lead + state.shape[-1:]),
-                         x], dim=-1)
-        # one slice covers every branch window: fr[u, j] = xin[1 + uC + j],
-        # and branch p's decimated stream is brx[p, u] = fr[u, C-1-p]
-        fr = xin[..., 1:1 + (m + q - 1) * c].reshape(lead + (m + q - 1, c))
-        brx = fr.flip(-1).transpose(-1, -2)                # [.., C, m+q-1]
-        # per-branch causal FIR: v_p[m'] = sum_j hp[p, q-1-j] brx[p, m'+j]
-        v = torch.zeros(lead + (c, m), dtype=x.dtype, device=x.device)
-        for j in range(q):
-            v = v + self._branch[:, j:j + 1] * brx[..., j:j + m]
-        # inverse DFT across branches, scaled by C: channel c lands at
-        # +c rate / C
-        y = (torch.fft.ifft(v, dim=-2) * np.float32(c)).to(torch.complex64)
-        return xin[..., xin.shape[-1] - k:], y
+        # the kernel's wrapper (its twin on the CPU); a shape the kernel
+        # does not take keeps the stock path
+        if self._kernel:
+            return channelizer.channelize(state, x.contiguous(), self._branch)
+        if x.is_cuda:
+            ChannelizerBlock.stock_chunks += 1
+        return channelizer.channelize_reference(state, x, self._branch)
 
 
 __all__ = ["ChannelizerBlock"]

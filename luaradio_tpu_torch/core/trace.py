@@ -51,7 +51,10 @@ thread, t0_ns, t1_ns)`` to a bounded buffer (the newest ``RECORDS``,
 record is made on the thread that resolves it and ends there, its length
 the card's time.  The counter ``ChannelizerBlock.rows_emitted`` counts
 the channel rows the channelizer has emitted (C a chunk, times any batch
-in front).  ``chunk`` is the
+in front), ``channelize.launches`` (ops/channelizer.py) the launches of
+the channelizer's kernel, one a chunk on a card, and
+``ChannelizerBlock.stock_chunks`` the chunks a card ran on the stock
+path instead (a shape the kernel does not take).  ``chunk`` is the
 chunk's sequence number from 0, assigned by the reader in read order; a
 span opened without one carries its parent's.  To ask why chunk k was
 late, join its records on ``chunk == k``: its read and copy, the pump's

@@ -26,6 +26,8 @@ def pytest_configure(config):
         "markers", "slow: spawns subprocesses / long-running scenarios")
     config.addinivalue_line(
         "markers", "accel_matrix: full-suite sweep lane, select with -m")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
