@@ -3562,8 +3562,8 @@ def phase_io_wire(dev):
     for bit.  Returns {driver: max |card - host|} (0 everywhere)."""
     errs = {}
     for name, (cls, args) in WIRE_DRIVERS.items():
-        info = np.iinfo(cls._wire_dtype)
-        codes = np.arange(info.min, info.max + 1).astype(cls._wire_dtype)
+        info = np.iinfo(cls.wire_dtype)
+        codes = np.arange(info.min, info.max + 1).astype(cls.wire_dtype)
         raw = np.concatenate([codes, codes[::-1]])
         src = cls(*args, 1e8, 1e6)
         src._make_ring()
@@ -3746,14 +3746,14 @@ def phase_live(dev, wires, sent):
                    else None, "k3_launches": k3, "scan_launches": scans,
                    "overflows": src.ring.overflows,
                    "dropped": src.ring.dropped_samples}
-            if (id(src) not in runner._wire_srcs or src.ring.overflows
+            route = next(f.route for f in runner.feeds if f.source is src)
+            if (route != "wire" or src.ring.overflows
                     or src.ring.dropped_samples or fake.pos != len(wire)
                     or wall > LIVE_SLACK * secs
                     or (name != "wbfm_mono" and k3 < 1)):
                 raise AssertionError(f"live {name}: {rec}, served "
                                      f"{fake.pos} of {len(wire)} bytes, "
-                                     f"wire ingest "
-                                     f"{id(src) in runner._wire_srcs}")
+                                     f"route {route}")
             if name == "rds":
                 packets = [json.loads(ln) for ln in
                            text.getvalue().splitlines()]
@@ -4252,9 +4252,9 @@ def phase_time(tmp, dev, smi, paths, rds_path, rds_sent, rds_packets):
         r = Runner(pbench.file_graph(ring, sink, True),
                    chunk_size=BENCH_CHUNK, mesh=mesh, device=dev)
         r.run(max_chunks=3)
-        if not r._resident_srcs or r.h2d_copies:
-            raise AssertionError(f"time resident {label}: ring "
-                                 f"{bool(r._resident_srcs)}, "
+        if r.feeds[0].route != "resident" or r.h2d_copies:
+            raise AssertionError(f"time resident {label}: route "
+                                 f"{r.feeds[0].route}, "
                                  f"{r.h2d_copies} host-to-device copies")
         res[label] = np.concatenate(sink.got)
     err = float(np.max(np.abs(res["mesh"] - res["serial"]))) \

@@ -191,10 +191,9 @@ def _run_scenario(name: str, d: Path, mesh, dev):
     if name.startswith("wbfm"):
         r = Runner(wbfm_chain(_wbfm_source(name, d), sink), chunk_size=CHUNK,
                    mesh=mesh, device=dev)
-        if name == "wbfm_resident" and not r._resident_srcs:
-            raise RuntimeError("wbfm_resident: the resident ring is off")
-        if name == "wbfm_wire" and not r._wire_srcs:
-            raise RuntimeError("wbfm_wire: wire ingest is off")
+        route = {"wbfm_resident": "resident", "wbfm_wire": "wire"}.get(name)
+        if route and r.feeds[0].route != route:
+            raise RuntimeError(f"{name}: the {route} route is off")
         r.run(max_chunks=N_CHUNKS)
         return sink.got
     channels = mesh.shape["channel"]

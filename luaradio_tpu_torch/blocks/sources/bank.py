@@ -7,14 +7,14 @@ adapts C ordinary host sources (files, arrays) into the [channels, time]
 layout that ``run(channels=C)`` consumes (core/runtime.py).
 
 A bank of IQ or real file sources that all share one wire format whose
-conversion is exact in float32 (8- and 16-bit integers) offers wire
-ingest (core/block.py HostSourceBlock): ``wire_read`` copies each
-child's raw wire items straight into its row of one [C, k n] array, and
-the runtime ships that array to the card, where the children's own
-converter (blocks/sources/files.py ``_make_wire_ingest``) turns it into
-the same complex64 or float32 samples ``read`` stacks on the host, bit
-for bit.  Any other bank (32-bit or float formats, mixed formats, IQ
-mixed with real, array or SDR children) keeps the host path.
+conversion is exact in float32 (8- and 16-bit integers) takes the wire
+route (core/ingest.py): ``wire_read`` copies each child's raw items into
+its row of one [C, k n] array through the children's public wire
+contract (``wire_factor``, ``wire_dtype``, ``read_wire_into``), and the
+card converts it with the children's own converter into the samples
+``read`` stacks on the host, bit for bit.  Any other bank (32-bit or
+float formats, mixed formats, IQ mixed with real, array or SDR children)
+takes the host route.
 """
 
 from __future__ import annotations
@@ -84,16 +84,16 @@ class BankSource(HostSourceBlock):
 
     # -- wire ingest --------------------------------------------------------
     @property
-    def _wire_factor(self) -> int:
-        return getattr(self.children[0], "_wire_factor", 1)
+    def wire_factor(self) -> int:
+        return self.children[0].wire_factor
 
     def device_ingest(self):
         """The children's converter when every child is a wire file source
-        with one, all of one format and ``_wire_factor``; else None."""
+        with one, all of one format and ``wire_factor``; else None."""
         c0 = self.children[0]
         if not all(isinstance(s, _WireFileSource)
                    and s.format.name == c0.format.name
-                   and s._wire_factor == c0._wire_factor
+                   and s.wire_factor == c0.wire_factor
                    for s in self.children):
             return None
         return c0.device_ingest()
@@ -102,12 +102,12 @@ class BankSource(HostSourceBlock):
         """(raw [C, k * n_min] wire items, n_min) or None at EOF: each
         child's items copied into its row of one array, allocated afresh
         a chunk (the read-ahead queue holds chunks in flight)."""
-        k = self._wire_factor
+        k = self.wire_factor
         raw = np.empty((len(self.children), k * n),
-                       self.children[0]._wire_dtype)
+                       self.children[0].wire_dtype)
         n_min = n
         for row, s in zip(raw, self.children):
-            got = s._read_wire_into(row)
+            got = s.read_wire_into(row)
             if got == 0:
                 return None
             n_min = min(n_min, got)

@@ -2,13 +2,10 @@
 radio/blocks/sources/{iqfile,realfile,rawfile,wavfile,json}.lua).
 
 Host blocks: they read bytes and convert them to numpy sample arrays
-(vectorized, unlike the reference's per-sample Lua loops).  The IQ and
-real file sources share _WireFileSource: formats whose conversion is exact
-in float32 arithmetic (8- and 16-bit integers) also offer *wire ingest*,
-where the runtime ships the raw 1-2 byte items to the card and converts
-them there (core/block.py HostSourceBlock).  A repeating binary source
-(IQ, real, raw) may instead be decoded onto the card once, as a
-device-resident ring that the runtime reads windows from
+(vectorized, unlike the reference's per-sample Lua loops).  Of the ingest
+routes (core/ingest.py), the IQ and real file sources (_WireFileSource)
+offer the wire one in the formats exact in float32 (8- and 16-bit
+integers), and a repeating binary source the resident one
 (_FileSourceBase).
 """
 
@@ -23,15 +20,15 @@ import numpy as np
 import torch
 
 from luaradio_tpu_torch.core.block import HostSourceBlock, Output
-from luaradio_tpu_torch.ops.complexutil import to_device, wire_to_complex
+from luaradio_tpu_torch.ops.complexutil import (to_device, wire_converter,
+                                                wire_to_complex)
 from luaradio_tpu_torch.types import (ComplexFloat32, Float32, SampleType,
                                       object_type)
 from luaradio_tpu_torch.utils import format as format_utils
 
-#: wire formats whose raw->float conversion is exact in float32 arithmetic;
-#: these may be converted on the card, so only the 1-2 byte/item wire
-#: bytes cross the host->device link (32-bit formats stay on the host
-#: float64 path for bit-identical rounding).
+#: the wire formats whose conversion is exact in float32, which take the
+#: wire route (32-bit formats stay on the host's float64 path for
+#: bit-identical rounding)
 _DEVICE_CONVERT_FORMATS = {
     "u8", "s8", "u16le", "u16be", "s16le", "s16be",
 }
@@ -45,30 +42,6 @@ def _open_readable(file):
     return file, False
 
 
-def _make_wire_ingest(fmt, complex_: bool):
-    """On-device raw -> samples converter for an 8- or 16-bit wire format:
-    float = (raw - offset) / scale, then interleaved pairs -> complex64.
-
-    It computes what the host path (utils/format.py raw_to_float) does,
-    bit for bit, in float32: ``raw - offset`` and the scale are exact in
-    float32, and a correctly rounded float32 quotient of two float32
-    values equals the float64 quotient rounded to float32.  The divisor
-    is a 0-d tensor on the device: PyTorch turns a division by a Python
-    scalar on the card into a multiply by its reciprocal, which put a
-    conversion one ulp off the host path for some codes."""
-    offset = float(fmt.offset)
-    scale = float(fmt.scale)
-    u16 = fmt.dtype.kind == "u" and fmt.itemsize == 2
-
-    def ingest(raw: torch.Tensor) -> torch.Tensor:
-        if u16:  # shipped as int16 (torch's uint16 has few kernels)
-            raw = raw.to(torch.int32) & 0xFFFF
-        div = torch.full((), scale, dtype=torch.float32, device=raw.device)
-        f = (raw.to(torch.float32) - offset) / div
-        return wire_to_complex(f) if complex_ else f
-    return ingest
-
-
 #: the largest decoded payload a repeating file source uploads to the
 #: card for its device-resident ring, in bytes
 RESIDENT_BUDGET = 256 << 20
@@ -78,15 +51,11 @@ class _FileSourceBase(HostSourceBlock):
     """Base for binary file sources: the file, its mmap, byte reads with
     ``repeat_on_eof``, and the device-resident ring.
 
-    ``resident`` controls the ring for repeating sources: a
+    The ring (``resident``, core/block.py HostSourceBlock): a
     ``repeat_on_eof`` file whose decoded payload fits RESIDENT_BUDGET is
     decoded onto the card once, and every chunk after that is a window
     over it, with no host read and no host-to-device copy (the reference
-    re-reads and re-converts the file every pass, iqfile.lua:82-116).
-    ``None`` (default) takes the ring where the runtime finds the source
-    eligible, ``False`` always streams from the host, and ``True``
-    requires the ring: the runtime raises where the source cannot have
-    it."""
+    re-reads and re-converts the file every pass, iqfile.lua:82-116)."""
 
     def __init__(self, file, rate: float | None, repeat_on_eof: bool = False,
                  resident: bool | None = None):
@@ -189,10 +158,10 @@ class _FileSourceBase(HostSourceBlock):
             return None
 
     def _payload_nbytes_bound(self, file_bytes: int) -> int:
-        """Upper bound on the decoded payload for ``file_bytes`` of wire
-        data (a wire item expanding to a float32: 4x), so that
-        resident_setup refuses an oversized file before decoding it."""
-        return file_bytes * 4
+        """Upper bound on the decoded payload of a ``file_bytes`` file (the
+        file itself by default), so that resident_setup refuses an
+        oversized file before decoding it."""
+        return file_bytes
 
     def _decode_all(self):
         """The whole file as (1-D payload ndarray, samples, payload items
@@ -200,10 +169,10 @@ class _FileSourceBase(HostSourceBlock):
         each concrete source."""
         return None
 
-    def _decode_ring(self, ring: torch.Tensor) -> torch.Tensor:
-        """The uploaded payload -> samples on the card; overridden by each
-        concrete source."""
-        return ring
+    def _decode_ring(self, ring: torch.Tensor, k: int) -> torch.Tensor:
+        """The uploaded payload (``k`` items a sample) -> samples on the
+        card: pairs as complex64."""
+        return wire_to_complex(ring) if k == 2 else ring
 
     def resident_setup(self, chunk: int) -> bool:
         """Decode the file onto the card for ``chunk``-sample windows, or
@@ -226,7 +195,7 @@ class _FileSourceBase(HostSourceBlock):
         # the ring extended by one chunk, so that every window (starting
         # anywhere in the first period) is contiguous
         ext = np.resize(payload[:n * k], n * k + chunk * k)
-        self._res_buf = self._decode_ring(to_device(ext, self.device))
+        self._res_buf = self._decode_ring(to_device(ext, self.device), k)
         self._res_n = n
         self._res_pos = 0
         return True
@@ -240,10 +209,7 @@ class _FileSourceBase(HostSourceBlock):
 
 class _WireFileSource(_FileSourceBase):
     """The IQ and real file sources: a scalar wire ``format``, the wire
-    ingest of the exact-in-float32 formats, and their rings.
-    ``_wire_factor`` is wire items a sample (2 for interleaved I/Q)."""
-
-    _wire_factor = 1
+    route of the exact-in-float32 formats, and their rings."""
 
     def __init__(self, file, format: str, rate: float,
                  repeat_on_eof: bool = False, resident: bool | None = None):
@@ -251,47 +217,43 @@ class _WireFileSource(_FileSourceBase):
         self.format = format_utils.get_format(format)
 
     def device_ingest(self):
-        if self.format.name in _DEVICE_CONVERT_FORMATS:
-            return _make_wire_ingest(self.format,
-                                     complex_=self._wire_factor == 2)
-        return None
+        fmt = self.format
+        if fmt.name not in _DEVICE_CONVERT_FORMATS:
+            return None
+        return wire_converter(fmt.offset, fmt.scale, divide=True,
+                              complex_=self.wire_factor == 2,
+                              u16=fmt.dtype.kind == "u" and fmt.itemsize == 2)
 
     @property
-    def _wire_dtype(self) -> np.dtype:
+    def wire_dtype(self) -> np.dtype:
         """wire_read's item dtype: the format's, in native byte order, u16
         as int16."""
         dt = self.format.dtype.newbyteorder("=")
         return np.dtype(np.int16) if dt == np.uint16 else dt
-
-    def _raw(self, buf: bytes, count: int) -> np.ndarray:
-        """``count`` wire items of ``buf`` as a writable ``_wire_dtype``
-        array (u16 codes wrap to the int16 of the same bits)."""
-        return np.frombuffer(buf, dtype=self.format.dtype,
-                             count=count).astype(self._wire_dtype)
 
     def _convert(self, buf: bytes) -> np.ndarray:
         """Host conversion of whole samples of ``buf``."""
         raise NotImplementedError
 
     def read(self, n: int):
-        buf = self._read_bytes(n * self._wire_factor * self.format.itemsize)
+        buf = self._read_bytes(n * self.wire_factor * self.format.itemsize)
         if not buf:
             return None
         return self._convert(buf)
 
     def wire_read(self, n: int):
-        out = np.empty(n * self._wire_factor, self._wire_dtype)
-        count = self._read_wire_into(out)
-        return (out[:count * self._wire_factor], count) if count else None
+        out = np.empty(n * self.wire_factor, self.wire_dtype)
+        count = self.read_wire_into(out)
+        return (out[:count * self.wire_factor], count) if count else None
 
-    def _read_wire_into(self, out: np.ndarray) -> int:
-        """wire_read's items for up to ``out.size // _wire_factor`` samples
-        written into ``out`` (a contiguous row of ``_wire_dtype``);
+    def read_wire_into(self, out: np.ndarray) -> int:
+        """wire_read's items for up to ``out.size // wire_factor`` samples
+        written into ``out`` (a contiguous row of ``wire_dtype``);
         returns the whole samples read (0 at EOF)."""
         got = self._read_bytes_into(out.view(np.uint8))
-        count = got // (self._wire_factor * self.format.itemsize)
+        count = got // (self.wire_factor * self.format.itemsize)
         if self.format.dtype.byteorder == ">":
-            out[:count * self._wire_factor].byteswap(inplace=True)
+            out[:count * self.wire_factor].byteswap(inplace=True)
         return count
 
     def _payload_nbytes_bound(self, file_bytes: int) -> int:
@@ -305,25 +267,24 @@ class _WireFileSource(_FileSourceBase):
         buf = self._whole_file_bytes()
         if not buf:
             return None
-        k, item = self._wire_factor, self.format.itemsize
+        k, item = self.wire_factor, self.format.itemsize
         n = len(buf) // (k * item)
-        if self.device_ingest() is not None:
-            return self._raw(buf, k * n), n, k
+        if self.device_ingest() is not None:     # the wire items, u16 as int16
+            return np.frombuffer(buf, self.format.dtype, k * n).astype(
+                self.wire_dtype), n, k
         f = self._convert(buf[:n * k * item])
         return f.view(np.float32), n, k
 
-    def _decode_ring(self, ring):
+    def _decode_ring(self, ring, k):
         conv = self.device_ingest()
-        if conv is not None:
-            return conv(ring)
-        return wire_to_complex(ring) if self._wire_factor == 2 else ring
+        return super()._decode_ring(ring, k) if conv is None else conv(ring)
 
 
 class IQFileSource(_WireFileSource):
     """Complex samples from an interleaved-I/Q binary file in any of the 14
     scalar wire formats (reference: iqfile.lua:82-116)."""
 
-    _wire_factor = 2
+    wire_factor = 2
 
     def __init__(self, file, format: str, rate: float,
                  repeat_on_eof: bool = False, resident: bool | None = None):
@@ -357,9 +318,6 @@ class RawFileSource(_FileSourceBase):
         self.data_type = data_type
         self.add_type_signature([], [Output("out", data_type)])
 
-    def _payload_nbytes_bound(self, file_bytes: int) -> int:
-        return file_bytes        # the payload is the file, viewed in place
-
     def read(self, n: int):
         item = self.data_type.dtype.itemsize
         buf = self._read_bytes(n * item)
@@ -380,10 +338,6 @@ class RawFileSource(_FileSourceBase):
         if dt.kind == "c":
             return arr.view(np.float32), n, 2
         return arr, n, 1
-
-    def _decode_ring(self, ring):
-        return wire_to_complex(ring) if self.data_type.dtype.kind == "c" \
-            else ring
 
 
 class WAVFileSource(HostSourceBlock):

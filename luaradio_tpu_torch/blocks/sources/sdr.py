@@ -34,10 +34,9 @@ from ctypes import (CFUNCTYPE, POINTER, byref, c_bool, c_char, c_char_p,
                     c_uint8, c_uint32, c_uint64, c_void_p)
 
 import numpy as np
-import torch
 
 from luaradio_tpu_torch.core.block import HostSourceBlock, Output
-from luaradio_tpu_torch.ops.complexutil import wire_to_complex
+from luaradio_tpu_torch.ops.complexutil import wire_converter
 from luaradio_tpu_torch.types import ComplexFloat32
 from luaradio_tpu_torch.utils.ringbuffer import SampleRingBuffer
 
@@ -88,22 +87,19 @@ class _SDRSourceBase(HostSourceBlock):
                 f"driver or use a file/network source")
         return lib
 
-    #: drivers whose ring stores RAW integer wire items set offset/scale/
-    #: dtype (float = (raw - offset) * scale, exact in float32 — the same
-    #: contract files.py applies to captures): the shared plumbing below
-    #: then provides read()/wire_read()/device_ingest(), so only the
-    #: 1-2 byte wire items cross the host->device link when every
-    #: consumer is a device block.
+    #: drivers whose ring stores raw integer wire items set offset, scale
+    #: and dtype (float = (raw - offset) * scale, exact in float32): the
+    #: plumbing below then offers the wire route (core/ingest.py).
     _wire_offset: float | None = None
     _wire_scale: float | None = None
-    _wire_dtype = np.uint8
-    _wire_factor = 2          # wire items (I, Q) per complex sample
+    wire_dtype = np.uint8
+    wire_factor = 2           # wire items (I, Q) per complex sample
 
     def _make_ring(self):
         cap = max(int(self.rate * self.RING_SECONDS), 1 << 18)
         if self._wire_offset is not None:
-            self.ring = SampleRingBuffer(self._wire_factor * cap,
-                                         self._wire_dtype)
+            self.ring = SampleRingBuffer(self.wire_factor * cap,
+                                         self.wire_dtype)
         else:
             self.ring = SampleRingBuffer(cap, np.complex64)
         return self.ring
@@ -121,7 +117,7 @@ class _SDRSourceBase(HostSourceBlock):
                 f"{self.name}: a chunk needs {items} ring items but the "
                 f"ring holds {self.ring.capacity}; increase RING_SECONDS "
                 f"or reduce chunk_size")
-        per_s = self.rate * (self._wire_factor
+        per_s = self.rate * (self.wire_factor
                              if self._wire_offset is not None else 1)
         timeout = max(self.READ_TIMEOUT, 2.0 * items / per_s)
         out = self.ring.read_exact(items, timeout=timeout)
@@ -143,7 +139,7 @@ class _SDRSourceBase(HostSourceBlock):
         return out
 
     def read(self, n: int):
-        """A full n-sample complex chunk (host consumers / eager mode)."""
+        """A full n-sample complex chunk (the host route)."""
         if self._wire_offset is None:
             return self._ring_read(n)
         wr = self.wire_read(n)
@@ -156,7 +152,7 @@ class _SDRSourceBase(HostSourceBlock):
 
     def wire_read(self, n: int):
         """Raw interleaved wire items as (array, n_complex_valid)."""
-        k = self._wire_factor
+        k = self.wire_factor
         raw = self._ring_read(k * n)
         if raw is None:
             return None
@@ -167,19 +163,11 @@ class _SDRSourceBase(HostSourceBlock):
 
     def device_ingest(self):
         """``raw tensor -> complex64`` on the tensor's device, equal to
-        read()'s host conversion bit for bit: ``raw - offset`` is exact in
-        float32, and the float32 scale is multiplied as a 0-d float32
-        tensor, so each component is one correctly rounded float32
-        product of the same operands as on the host."""
+        read()'s host conversion (a float32 product) bit for bit."""
         if self._wire_offset is None:
             return None
-        offset = float(np.float32(self._wire_offset))
-        scale = float(np.float32(self._wire_scale))
-
-        def ingest(raw: torch.Tensor) -> torch.Tensor:
-            s = torch.full((), scale, dtype=torch.float32, device=raw.device)
-            return wire_to_complex((raw.to(torch.float32) - offset) * s)
-        return ingest
+        return wire_converter(self._wire_offset, self._wire_scale,
+                              divide=False)
 
 
 class _ReaderThreadSource(_SDRSourceBase):
@@ -246,12 +234,11 @@ class RtlSdrSource(_ReaderThreadSource):
     _READ_BYTES = 1 << 17  # 64k complex samples per USB read
     # raw u8 wire ring: the reader thread does no conversion, and only
     # 2 bytes/sample cross the host->device link when every consumer is
-    # a device block (the card applies the identical (u8-127.5)/127.5 —
-    # the reference converts per sample on the host in the USB callback,
+    # a device block (the card applies the identical (u8-127.5)*(1/127.5)
+    # — the reference converts per sample on the host in the USB callback,
     # rtlsdr.lua:224-232)
     _wire_offset = 127.5
     _wire_scale = 1.0 / 127.5
-    _wire_dtype = np.uint8
 
     def initialize(self):
         lib = self._require_library()
@@ -323,7 +310,7 @@ class HackRFSource(_SDRSourceBase):
     # applies the reference's s8 * (1/127.5) (hackrf.lua:244-245)
     _wire_offset = 0.0
     _wire_scale = 1.0 / 127.5
-    _wire_dtype = np.int8
+    wire_dtype = np.int8
 
     def initialize(self):
         lib = self._require_library()
@@ -421,7 +408,7 @@ class AirspySource(_SDRSourceBase):
     # raw s16 wire ring (INT16_IQ): float = s16 * 2^-15, exact in float32
     _wire_offset = 0.0
     _wire_scale = 1.0 / 32768.0
-    _wire_dtype = np.int16
+    wire_dtype = np.int16
 
     def _call(self, fname, *args):
         fn = getattr(self._lib, f"{self._PREFIX}_{fname}")
@@ -664,7 +651,7 @@ class BladeRFSource(_ReaderThreadSource):
     # float32)
     _wire_offset = 0.0
     _wire_scale = 1.0 / 2048.0
-    _wire_dtype = np.int16
+    wire_dtype = np.int16
 
     def _read_hw(self):
         r = self._lib.bladerf_sync_rx(self._dev, self._buf,
@@ -742,7 +729,7 @@ class UHDSource(_ReaderThreadSource):
     # uhd.lua stream_args)
     _wire_offset = 0.0
     _wire_scale = 1.0 / 32767.0
-    _wire_dtype = np.int16
+    wire_dtype = np.int16
 
     def __init__(self, device: str, frequency: float, rate: float, **options):
         super().__init__(frequency, rate, **options)
@@ -1009,7 +996,7 @@ class SDRplaySource(_SDRSourceBase):
     # (sdrplay.lua per-sample host conversion)
     _wire_offset = 0.0
     _wire_scale = 1.0 / 32767.5
-    _wire_dtype = np.int16
+    wire_dtype = np.int16
 
     def initialize(self):
         lib = self._require_library()
@@ -1140,7 +1127,7 @@ class SoapySDRSource(_ReaderThreadSource):
     LIBRARY_NAMES = ("SoapySDR",)
     _wire_offset = 0.0
     _wire_scale = 1.0 / 32767.0
-    _wire_dtype = np.int16
+    wire_dtype = np.int16
 
     def __init__(self, uri: str, frequency: float, rate: float, **options):
         super().__init__(frequency, rate, **options)

@@ -8,7 +8,7 @@ application with -a/--application, -i/--input, -o/--output.
 Applications run on the CUDA card; ``main(argv, device="cpu")`` runs them
 on the CPU through the Python API.  The JAX package's ingest options
 (--ingest, --ingest-stripes) have no counterpart: the port chooses its
-ingest itself (core/runtime.py).
+ingest itself (core/ingest.py).
 """
 
 from __future__ import annotations

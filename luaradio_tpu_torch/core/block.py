@@ -337,17 +337,17 @@ class SignalSourceBlock(SourceBlock, SignalBlock):
 
 class HostSourceBlock(SourceBlock, HostBlock):
     """Host source: read(n) returns up to n samples as a numpy array per
-    output port, or None at EOF.
-
-    Sources whose wire format converts to float exactly in float32 may also
-    implement the *wire ingest* contract: ``wire_read(n)`` returns the raw
-    integer wire samples ``(raw, n_valid)`` (or None at EOF) and
-    ``device_ingest()`` returns a ``raw tensor -> samples tensor`` function.
-    The runtime then ships the 1-2 byte/sample wire bytes across the
-    host->device link and converts on the card (the reference converts on
-    the host per sample, iqfile.lua:82-116)."""
+    output port, or None at EOF.  The rest of the ingest contract has
+    defaults, and from it the runtime picks the source's route to the card
+    once (core/ingest.py): ``device_ingest``, ``wire_read`` and
+    ``wire_factor`` (wire items a sample) make the wire route,
+    ``resident_setup`` and ``resident_read`` the resident one, which
+    ``resident`` takes where eligible (None), never (False) or requires
+    (True: the runtime raises where it cannot be had)."""
 
     domain = "host"
+    wire_factor = 1
+    resident: bool | None = None
 
     def read(self, n: int):
         raise NotImplementedError
@@ -362,6 +362,16 @@ class HostSourceBlock(SourceBlock, HostBlock):
         the device) to the block's samples, or None when this source does
         not support device-side conversion (the default)."""
         return None
+
+    def resident_setup(self, chunk: int) -> bool:
+        """Put the payload on the device for ``chunk``-sample windows, or
+        return False where the source has no ring (the default)."""
+        return False
+
+    def resident_read(self, n: int):
+        """The next ``n`` samples from the ring, a tensor on the device.
+        Only called after resident_setup returned True."""
+        raise NotImplementedError
 
 
 class SinkBlock(HostBlock):

@@ -8,22 +8,20 @@ Port design: each *stage* of device blocks runs as one step function
 ``step(states, ext_inputs) -> (states, outputs)`` over torch tensors on the
 graph's device; block boundaries inside a segment cost one tensor hand-off.
 A host "pump" drives chunks: a read-ahead thread reads host sources and
-copies each chunk to the card (a repeating file source may hold its whole
-file on the card instead, read as windows of a device-resident ring with
-no copy), the pump feeds the segments, and boundary
-outputs are copied back to the host asynchronously for the host blocks
-(file sinks).  PyTorch queues the card's work asynchronously, so host I/O
-for one chunk overlaps device compute of the previous one.
+copies each chunk to the card, each by the route its feed chose once
+(core/ingest.py), the pump feeds the segments, and boundary outputs are
+copied back to the host asynchronously for the host blocks (file sinks).
+PyTorch queues the card's work asynchronously, so host I/O for one chunk
+overlaps device compute of the previous one.
 
 A channel bank (``Runner(..., channels=C)``, the one-card form of the JAX
 package's ``run(mesh=<channel mesh>, channels=C)``) runs the same graph on
 C independent channels: every device block's state is broadcast to
 (C,) + its shape and its chunks carry a leading [C] axis (device blocks
 broadcast over leading axes, as the JAX package's vmap does), BankSource
-chunks arrive as [C, n] (shipped as [C, k n] wire items and converted on
-the card where its file children share an exact wire format), device
-sources are generated once and replicated C times, and mid-graph host
-blocks run as one clone per channel on their row of the boundary arrays.
+chunks arrive as [C, n] (or as [C, k n] wire items), device sources are
+generated once and replicated C times, and mid-graph host blocks run as
+one clone per channel on their row of the boundary arrays.
 
 A mesh (``Runner(..., mesh=...)``, parallel/mesh.py) with a ``"time"``
 axis of D shards splits every chunk into D consecutive shards: each
@@ -74,6 +72,7 @@ from luaradio_tpu_torch.core.block import (Block, HostSourceBlock,
                                            SignalSourceBlock, SinkBlock)
 from luaradio_tpu_torch.core import trace as trace_mod
 from luaradio_tpu_torch.core.composite import CompositeBlock, Graph, PortRef
+from luaradio_tpu_torch.core.ingest import pad_to, plan_feeds
 from luaradio_tpu_torch.ops.complexutil import to_device
 from luaradio_tpu_torch.parallel import multihost
 from luaradio_tpu_torch.parallel.mesh import join_shards, split_shards
@@ -138,28 +137,29 @@ class Segment:
     """A maximal group of device blocks run as one step function."""
 
     def __init__(self, graph: Graph, blocks: list[Block], bid: dict[int, str],
-                 wire_ingest: dict[str, Any] | None = None,
+                 ingest: dict[str, Any] | None = None,
                  channels: int | None = None, time_axis=None):
         self.blocks = blocks
         self.channels = channels
         #: the mesh's time Axis (parallel/mesh.py), or None
         self.time_axis = time_axis
         self.bid = bid
-        self.wire_ingest = wire_ingest or {}
+        #: the wire feeds' on-card converters, by output key
+        self.ingest = ingest or {}
         self._edges = graph.edges
         self._gen_len = {bid[id(b)]: graph.out_chunk[id(b)] for b in blocks
                          if isinstance(b, SignalSourceBlock)}
         in_seg = {id(b) for b in blocks}
 
-        # External input edges (values produced outside this segment).
-        self.ext_keys: list[str] = []
+        # External input edges (values produced outside this segment) and
+        # their planned lengths, to which a host block's short chunk is padded.
+        self.ext_len: dict[str, int] = {}
         for b in blocks:
             for i in range(len(b.inputs)):
                 src = graph.edges[PortRef(b, i)]
                 if id(src.block) not in in_seg:
                     key = f"{bid[id(src.block)]}.{src.index}"
-                    if key not in self.ext_keys:
-                        self.ext_keys.append(key)
+                    self.ext_len[key] = graph.out_chunk[id(src.block)]
 
         # Output edges consumed outside the segment; those read by host
         # blocks are copied to the host, the rest (Nop/Benchmark sinks)
@@ -195,7 +195,7 @@ class Segment:
         ax = self.time_axis
         vals = {}
         for k, v in ext.items():
-            v = self.wire_ingest[k](v) if k in self.wire_ingest else v
+            v = self.ingest[k](v) if k in self.ingest else v
             vals[k] = split_shards(v, ax.n_local) if ax else v
         bid, edges = self.bid, self._edges
         for b in self.blocks:
@@ -232,10 +232,10 @@ class Segment:
 
 
 class _Prefetcher:
-    """Read-ahead pump stage: a background thread reads host sources,
-    converts wire formats, and copies the chunk to the device, so file
-    I/O, format conversion, and the host->device copy of chunk k+1 overlap
-    the device compute of chunk k.  The reference gets the same overlap
+    """Read-ahead pump stage: a background thread reads host sources and
+    copies the chunk to the device, so file I/O, host format conversion
+    and the host->device copy of chunk k+1 overlap the device compute of
+    chunk k.  The reference gets the same overlap
     from its process-per-block pipes (composite.lua:568-636); here one
     thread + a small bounded queue replaces the socketpair transport.
 
@@ -371,7 +371,6 @@ class Runner:
                                device=device)
         self.device = g.device
         self.bid = {id(b): f"b{i}" for i, b in enumerate(g.order)}
-        self._by_bid = {f"b{i}": b for i, b in enumerate(g.order)}
         self.sources = [b for b in g.order if isinstance(b, HostSourceBlock)]
 
         for s in self.sources:
@@ -438,41 +437,10 @@ class Runner:
                 self._bank_clones[id(b)] = [copy.deepcopy(b)
                                             for _ in range(self._rows)]
 
-        # A host source whose outputs feed only device blocks has its
-        # chunks copied to the device by the read-ahead thread, as raw
-        # wire items where the source converts exactly on the device (a
-        # BankSource does where its children share one such format: one
-        # [C, k n] array of their items, blocks/sources/bank.py).  A
-        # repeating file source among them that can hold its whole file
-        # on the device (resident_setup) is read from that ring instead:
-        # no host read and no host-to-device copy per chunk.
-        self.wire_ingest: dict[str, Any] = {}
-        self._wire_srcs: set[int] = set()
-        self._resident_srcs: set[int] = set()
-        self._transfer_keys: set[str] = set()
-        for s in self.sources:
-            keys = [f"{self.bid[id(s)]}.{oi}" for oi in range(len(s.outputs))]
-            all_dev = all(c.block.domain == "device"
-                          for oi in range(len(s.outputs))
-                          for c in g.consumers(PortRef(s, oi)))
-            if (all_dev and len(s.outputs) == 1 and not channels
-                    and hasattr(s, "resident_setup")
-                    and s.resident_setup(g.out_chunk[id(s)])):
-                self._resident_srcs.add(id(s))
-                continue
-            if getattr(s, "resident", None) is True:
-                raise ValueError(
-                    f"{s.name}: resident=True, but the source cannot hold a "
-                    f"device-resident ring here (it needs repeat_on_eof, "
-                    f"a payload within RESIDENT_BUDGET and outputs that "
-                    f"feed only device blocks)")
-            if not all_dev:
-                continue
-            self._transfer_keys.update(keys)
-            ing = s.device_ingest()
-            if ing is not None and len(s.outputs) == 1:
-                self.wire_ingest[keys[0]] = ing
-                self._wire_srcs.add(id(s))
+        #: each host source's route to the card (core/ingest.py)
+        self.feeds = plan_feeds(self.sources, g, self.bid)
+        self._read_on_pump = mode == "eager" or all(
+            f.route == "resident" for f in self.feeds)
 
         # One segment per stage that contains device blocks.
         self.stage_plan: list[tuple[Segment | None, list[Block]]] = []
@@ -482,8 +450,9 @@ class Runner:
             host = [b for b in g.order
                     if g.stage[id(b)] == st and b.domain == "host"
                     and not isinstance(b, HostSourceBlock)]
-            seg = (Segment(g, dev, self.bid, self.wire_ingest, self._rows,
-                           self.time_axis) if dev else None)
+            seg = (Segment(g, dev, self.bid, {
+                f.keys[0]: f.ingest for f in self.feeds if f.ingest},
+                self._rows, self.time_axis) if dev else None)
             self.stage_plan.append((seg, host))
 
         # Pipelined pumping (fused mode): when no device block consumes a
@@ -512,13 +481,14 @@ class Runner:
 
     # ------------------------------------------------------------------
     def _prefetch_put(self, values: dict) -> dict:
-        """A chunk's values with the payloads that only device blocks
-        consume copied to the device (the graph's device, named
-        explicitly: in fused mode this runs on the read-ahead thread, in
-        eager mode on the pump)."""
-        return {k: self._to_device(v) if k in self._transfer_keys
-                and isinstance(v, np.ndarray) else v
-                for k, v in values.items()}
+        """A chunk's values with the copied feeds' payloads moved to the
+        device (the graph's device, named explicitly: in fused mode this
+        runs on the read-ahead thread, in eager mode on the pump)."""
+        for f in self.feeds:
+            if f.copied:    # device blocks take arrays, never host objects
+                for k in f.keys:
+                    values[k] = self._to_device(values[k])
+        return values
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         with self._h2d_lock:
@@ -531,11 +501,10 @@ class Runner:
         pump itself in eager mode; None at EOF.  When every source is
         device-resident there is no host read or copy to overlap, so the
         pump reads the windows itself."""
-        if not self.sources or self.mode == "eager" or all(
-                id(s) in self._resident_srcs for s in self.sources):
+        if self._read_on_pump:
             seq = self._n_read
             self._n_read += 1
-            return self._read_chunk(seq) if self.sources \
+            return self._read_chunk(seq) if self.feeds \
                 else ({}, {}, False, seq)
         if self._prefetcher is None:
             self._prefetcher = _Prefetcher(
@@ -567,66 +536,25 @@ class Runner:
             return fn(*args)
 
     def _read_sources(self):
-        """Read one chunk from every host source.  Returns (values, nvalid,
-        eof) or None when the stream ended before this chunk.  The final
-        partial chunk is zero-padded to the planned length (shapes stay
-        fixed); nvalid trims the outputs."""
-        g = self.graph
-        values: dict[str, Any] = {}
-        nvalid: dict[str, int] = {}
-        eof = False
-        for s in self.sources:
-            want = g.out_chunk[id(s)]
-            if id(s) in self._resident_srcs:
-                key = f"{self.bid[id(s)]}.0"
-                values[key] = s.resident_read(want)
-                nvalid[key] = want
-                continue
-            if id(s) in self._wire_srcs:
-                wr = s.wire_read(want)
-                if wr is None:
-                    return None
-                raw, nv = wr
-                k = getattr(s, "_wire_factor", 1)
-                if nv < want:
-                    eof = True
-                    pad = np.zeros(raw.shape[:-1] + (want * k - raw.shape[-1],),
-                                   dtype=raw.dtype)
-                    raw = np.concatenate([raw, pad], axis=-1)
-                key = f"{self.bid[id(s)]}.0"
-                values[key] = raw
-                nvalid[key] = nv
-                continue
-            data = s.read(want)
-            if data is None:
+        """One chunk from every host source, each through its feed
+        (core/ingest.py): (values, nvalid, eof), or None when the stream
+        ended before this chunk.  A short last chunk comes zero-padded to
+        the planned length (shapes stay fixed); nvalid trims the outputs."""
+        values, nvalid, eof = {}, {}, False
+        for f in self.feeds:
+            short = f.read(values, nvalid)
+            if short is None:
                 return None
-            if not isinstance(data, tuple):
-                data = (data,)
-            for oi, arr in enumerate(data):
-                key = f"{self.bid[id(s)]}.{oi}"
-                if isinstance(arr, list):
-                    values[key] = arr
-                    nvalid[key] = len(arr)
-                    continue
-                arr = np.asarray(arr)
-                nv = arr.shape[-1]
-                if nv < want:
-                    eof = True
-                    pad = np.zeros(arr.shape[:-1] + (want - nv,),
-                                   dtype=arr.dtype)
-                    arr = np.concatenate([arr, pad], axis=-1)
-                values[key] = arr
-                nvalid[key] = nv
-        if any(nvalid.get(f"{self.bid[id(s)]}.0", 1) == 0
-               for s in self.sources):
-            return None
-        return {k: self._local(v) for k, v in values.items()}, nvalid, eof
+            eof = eof or short
+        if self._split_axes is not None:
+            values = {k: self._local(v) for k, v in values.items()}
+        return values, nvalid, eof
 
     def _local(self, v):
         """This process's part of a chunk read in full (every process
         reads the whole chunk): its channel rows, or its contiguous block
         of the time axis.  nvalid stays global."""
-        if isinstance(v, list) or self._split_axes is None:
+        if isinstance(v, list):
             return v
         axes = self._split_axes[-v.ndim:]
         return v[multihost.local_slices(self.mesh, v.shape, axes)]
@@ -644,17 +572,10 @@ class Runner:
     def _run_segment(self, seg: Segment, values, nvalid, fetches):
         g = self.graph
         ext = {}
-        for k in seg.ext_keys:
+        for k, want in seg.ext_len.items():
             v = values[k]
             if isinstance(v, np.ndarray):  # a host block's output
-                # the last chunk may come short: pad it to the planned
-                # length (nvalid trims the outputs again)
-                want = g.out_chunk[id(self._by_bid[k.split(".")[0]])]
-                if v.shape[-1] < want:
-                    v = np.concatenate([v, np.zeros(
-                        v.shape[:-1] + (want - v.shape[-1],), v.dtype)],
-                        axis=-1)
-                v = self._to_device(v)
+                v = self._to_device(pad_to(v, want))
             ext[k] = v
         outs = seg.run(ext)
         # start the copies host blocks need now; they complete while the

@@ -8,7 +8,7 @@ in approximately [-1, 1): float = (raw - offset) / scale.
 Host-side conversion takes the native C library (utils/native.py) when it
 is available and vectorized numpy otherwise (the reference converts per
 sample in Lua).  The formats whose conversion is exact in float32 are
-also converted on the card (blocks/sources/files.py wire ingest).
+also converted on the card (ops/complexutil.py wire_converter).
 """
 
 from __future__ import annotations

@@ -314,7 +314,7 @@ def _u8_bank_graph(mod, paths, rate):
 @pytest.mark.parametrize("mode", ["fused", "eager"])
 def test_u8_bank_runner_takes_wire_ingest(tmp_path, monkeypatch, mode):
     """A Runner over a BankSource of u8 IQFileSources with channels=C
-    ships the bank as wire items (its key in ``wire_ingest``,
+    ships the bank as wire items (its feed's route ``"wire"``,
     ``BankSource.wire_reads`` one a chunk, the short last one included):
     its rows equal bit for bit the same run with the bank forced onto the
     host path, and lie within 2e-5 * scale of the JAX channel-mesh run."""
@@ -333,13 +333,14 @@ def test_u8_bank_runner_takes_wire_ingest(tmp_path, monkeypatch, mode):
 
     r, reads, wire = run()
     (src,) = r.sources
-    assert list(r.wire_ingest) == [f"{r.bid[id(src)]}.0"]
+    assert [(f.source, f.route, f.keys) for f in r.feeds] == [
+        (src, "wire", [f"{r.bid[id(src)]}.0"])]
     assert reads == 5
     assert wire.shape == (3, n // 8)
     with monkeypatch.context() as mp:
         mp.setattr(tl.BankSource, "device_ingest", lambda self: None)
         r, reads, host = run()
-    assert r.wire_ingest == {} and reads == 0
+    assert [f.route for f in r.feeds] == ["host"] and reads == 0
     assert np.array_equal(wire, host)
     top, sink = _u8_bank_graph(jl, paths, rate)
     top.run(chunk_size=chunk, mesh=_mesh(1), channels=3)
@@ -366,7 +367,7 @@ def test_u8_bank_on_a_mesh_equals_the_unsharded_run(tmp_path, mesh_shape):
                 mp.setattr(tl.BankSource, "device_ingest",
                            lambda self: None)
             r = Runner(top, chunk_size=chunk, mesh=mesh, channels=3, **CPU)
-        assert bool(r.wire_ingest) is wire
+        assert (r.feeds[0].route == "wire") is wire
         r.run()
         return _rows(sink)
 

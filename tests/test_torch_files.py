@@ -125,10 +125,11 @@ def test_realfile_source_feeds_device_blocks(fmt, resident, tmp_path):
             r = Runner(top, chunk_size=1024, device="cpu")
             r.run(max_chunks=5)
             src = r.sources[0]
-            assert (id(src) in r._resident_srcs) == (resident is None)
+            (feed,) = r.feeds
+            assert feed.source is src and feed.route == (
+                "resident" if resident is None
+                else "host" if fmt == "f32le" else "wire")
             assert (r.h2d_copies == 0) == (resident is None)
-            assert (r.wire_ingest != {}) == (resident is False
-                                             and fmt != "f32le")
         else:
             top.run(max_chunks=5, chunk_size=1024)
         outs[mod] = np.concatenate(sink.got)
@@ -196,7 +197,7 @@ def test_rawfile_resident_ring_feeds_device_blocks(kind, tmp_path):
                 tl.NopBlock(), sink)
     r = Runner(top, chunk_size=768, device="cpu")
     r.run(max_chunks=4)
-    assert r.h2d_copies == 0 and r._resident_srcs
+    assert r.h2d_copies == 0 and r.feeds[0].route == "resident"
     assert np.array_equal(np.concatenate(sink.got), np.resize(x, 4 * 768))
 
 

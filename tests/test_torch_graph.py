@@ -124,7 +124,7 @@ def test_u8_wire_ingest(capture, tmp_path, chunk):
     from luaradio_tpu_torch.utils import format as fu
     top, sink = _top(tl, capture["u8"], "u8")
     r = Runner(top, chunk_size=chunk, device="cpu")
-    assert r.wire_ingest
+    assert r.feeds[0].route == "wire"
     r.run()
     out = np.concatenate(sink.got)
     with open(capture["u8"], "rb") as f:
@@ -133,26 +133,126 @@ def test_u8_wire_ingest(capture, tmp_path, chunk):
     z.astype(np.complex64).view(np.float32).tofile(f32)
     top, sink = _top(tl, f32, "f32le")
     r = Runner(top, chunk_size=chunk, device="cpu")
-    assert not r.wire_ingest
+    assert r.feeds[0].route == "host"
     r.run()
     assert np.array_equal(out, np.concatenate(sink.got))
 
 
-def test_wire_ingest_matches_host_conversion():
-    from luaradio_tpu_torch.blocks.sources.files import _make_wire_ingest
+def test_wire_ingest_matches_host_conversion(tmp_path):
     from luaradio_tpu_torch.utils import format as fu
+
+    def conv(fmt):
+        path = tmp_path / fmt.name
+        path.touch()
+        return tl.IQFileSource(str(path), fmt.name, 1e6).device_ingest()
     raw = np.arange(256, dtype=np.uint8).repeat(2)
     for name in ("u8", "s8"):
         fmt = fu.get_format(name)
         r = raw.view(fmt.dtype)
-        got = _make_wire_ingest(fmt, True)(torch.from_numpy(r)).numpy()
+        got = conv(fmt)(torch.from_numpy(r)).numpy()
         exp = fu.bytes_to_complex(r.tobytes(), fmt)
         assert np.array_equal(got, exp)
     r16 = np.arange(0, 65536, 7, dtype=np.uint16)[:9000]
     fmt = fu.get_format("u16le")
-    got = _make_wire_ingest(fmt, True)(
-        torch.from_numpy(r16.view(np.int16))).numpy()
+    got = conv(fmt)(torch.from_numpy(r16.view(np.int16))).numpy()
     assert np.array_equal(got, fu.bytes_to_complex(r16.tobytes(), fmt))
+
+
+def _route_files(tmp_path):
+    """Small captures of every wire format the route table names."""
+    from luaradio_tpu_torch.utils import format as fu
+    x = np.random.default_rng(5).uniform(-0.9, 0.9, 2 * 3000)
+    paths = {}
+    for name in ("f32le", "u8", "s8", "u16le", "s16le"):
+        paths[name] = str(tmp_path / f"x.{name}")
+        with open(paths[name], "wb") as f:
+            f.write(fu.real_to_bytes(x.astype(np.float32),
+                                     fu.get_format(name)))
+    return paths
+
+
+def _sdr(cls):
+    src = cls(104.3e6, 2.4e6)
+    src.initialize = lambda: None       # no radio: only the route is read
+    return src
+
+
+#: each row of the route table: the source (from the captures), whether a
+#: host block consumes it, and its route and copy (or the error it raises)
+ROUTE_TABLE = {
+    "f32_file": (lambda p: tl.IQFileSource(p["f32le"], "f32le", RATE),
+                 False, ("host", True)),
+    "u8_iq_file": (lambda p: tl.IQFileSource(p["u8"], "u8", RATE),
+                   False, ("wire", True)),
+    "s8_iq_file": (lambda p: tl.IQFileSource(p["s8"], "s8", RATE),
+                   False, ("wire", True)),
+    "u16_real_file": (lambda p: tl.RealFileSource(p["u16le"], "u16le", RATE),
+                      False, ("wire", True)),
+    "s16_real_file": (lambda p: tl.RealFileSource(p["s16le"], "s16le", RATE),
+                      False, ("wire", True)),
+    "repeating_file": (lambda p: tl.IQFileSource(p["u8"], "u8", RATE,
+                                                 repeat_on_eof=True),
+                       False, ("resident", False)),
+    "repeating_file_resident_false": (
+        lambda p: tl.IQFileSource(p["u8"], "u8", RATE, repeat_on_eof=True,
+                                  resident=False),
+        False, ("wire", True)),
+    "repeating_file_to_a_host_block": (
+        lambda p: tl.IQFileSource(p["u8"], "u8", RATE, repeat_on_eof=True),
+        True, ("host", False)),
+    "resident_true_not_eligible": (
+        lambda p: tl.IQFileSource(p["u8"], "u8", RATE, resident=True),
+        False, ValueError),
+    "bank_of_one_wire_format": (
+        lambda p: tl.BankSource([tl.IQFileSource(p["u8"], "u8", RATE)
+                                 for _ in range(2)]),
+        False, ("wire", True)),
+    "bank_of_mixed_formats": (
+        lambda p: tl.BankSource([tl.IQFileSource(p["u8"], "u8", RATE),
+                                 tl.IQFileSource(p["s8"], "s8", RATE)]),
+        False, ("host", True)),
+    "sdr_with_a_wire_ring": (lambda p: _sdr(tl.RtlSdrSource),
+                             False, ("wire", True)),
+    "sdr_without_a_wire_ring": (lambda p: _sdr(tl.AirspyHFSource),
+                                False, ("host", True)),
+    "wire_file_to_a_host_block": (lambda p: tl.IQFileSource(p["u8"], "u8",
+                                                            RATE),
+                                  True, ("host", False)),
+}
+
+
+@pytest.mark.parametrize("mode", ["fused", "eager"])
+@pytest.mark.parametrize("case", sorted(ROUTE_TABLE))
+def test_route_table(tmp_path, case, mode):
+    """Each host source takes its route once, when the Runner is built
+    (core/ingest.py), and keeps to it: the feed's route and copy, one
+    host-to-device copy a chunk on a copied route and none otherwise, and
+    the thread that reads: in fused mode the read-ahead thread, or the
+    pump where every source is resident (no read-ahead thread starts); in
+    eager mode the pump.  ``resident=True`` where the ring cannot be had
+    raises."""
+    make, to_host, want = ROUTE_TABLE[case]
+    src = make(_route_files(tmp_path))
+    top = tl.CompositeBlock()
+    if to_host:
+        top.connect(src, tl.IQFileSink(str(tmp_path / "out.iq"), "f32le"))
+    else:
+        top.connect(src, tl.MultiplyConstantBlock(2.0), tl.NopSink())
+    if want is ValueError:
+        with pytest.raises(ValueError, match="resident=True"):
+            Runner(top, mode=mode, chunk_size=1024, device="cpu")
+        return
+    r = Runner(top, mode=mode, chunk_size=1024, trace=True, device="cpu")
+    (feed,) = r.feeds
+    assert feed.source is src and (feed.route, feed.copied) == want
+    assert (feed.ingest is not None) == (feed.route == "wire")
+    if case.startswith("sdr"):
+        return
+    r.run(max_chunks=2)
+    assert r.h2d_copies == (2 if feed.copied else 0)
+    reads = {e.thread for e in r.tracer.events() if e.name == "sources.read"}
+    assert reads == ({"MainThread"} if feed.route == "resident"
+                     or mode == "eager" else {"read-ahead"})
 
 
 def test_start_wait_with_timeout(capture):

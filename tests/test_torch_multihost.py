@@ -140,8 +140,8 @@ def _worker(rank: int, d: Path):
         sink = _collector(tl)
         r = Runner(_chain(tl, _time_source(tl, d, kind), sink),
                    chunk_size=CHUNK, mesh=time_mesh, device="cpu")
-        out[kind + "_ingest"] = (bool(r.wire_ingest),
-                                 bool(r._resident_srcs))
+        out[kind + "_ingest"] = (r.feeds[0].route == "wire",
+                                 r.feeds[0].route == "resident")
         r.run(max_chunks=N_CHUNKS)
         out[kind] = sink.got
     top = tl.CompositeBlock()
@@ -165,7 +165,7 @@ def _worker(rank: int, d: Path):
         sink = _collector(tl)
         r = Runner(_chain(tl, _u8_bank(tl, d), sink), chunk_size=CHUNK,
                    mesh=mesh, device="cpu")
-        wire = bool(r.wire_ingest)
+        wire = r.feeds[0].route == "wire"
         r.run()
         out[name] = (wire, r._chan_local, sink.got)
     with open(d / f"rank{rank}.pkl", "wb") as f:
@@ -344,7 +344,7 @@ def test_u8_bank_split_over_two_processes_equals_serial(workers, name):
     sink = _collector(tl)
     r = Runner(_chain(tl, _u8_bank(tl, d), sink), chunk_size=CHUNK,
                channels=CHANNELS, device="cpu")
-    assert r.wire_ingest
+    assert r.feeds[0].route == "wire"
     r.run()
     ref = np.concatenate(sink.got, axis=-1)
     assert ref.shape == (CHANNELS, N_CHUNKS * CHUNK // DECIM)

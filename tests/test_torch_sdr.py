@@ -946,7 +946,7 @@ def test_device_ingest_equals_read_over_every_code(driver):
     and the table of offsets and scales is the JAX package's."""
     cls, dtype, offset, scale = WIRE[driver]
     jcls = getattr(jl, cls.__name__)
-    assert (cls._wire_offset, cls._wire_scale, np.dtype(cls._wire_dtype)) \
+    assert (cls._wire_offset, cls._wire_scale, np.dtype(cls.wire_dtype)) \
         == (jcls._wire_offset, jcls._wire_scale, np.dtype(jcls._wire_dtype))
     assert (cls._wire_offset, cls._wire_scale) == (offset, scale)
     info = np.iinfo(dtype)
@@ -996,10 +996,10 @@ WIRE_DATA = {
 def test_wire_run_matches_host_conversion_and_jax(driver, tmp_path,
                                                   monkeypatch):
     """The source ships its raw wire items through the port's fused
-    Runner when every consumer is a device block (it is in
-    ``_wire_srcs``); the output equals the run where the source converts
-    on the host (device_ingest off) and the JAX package's wire run, bit
-    for bit."""
+    Runner when every consumer is a device block (its feed's route is
+    ``"wire"``); the output equals the run where the source converts on
+    the host (device_ingest off) and the JAX package's wire run, bit for
+    bit."""
     data = WIRE_DATA[driver](np.random.default_rng(123))
     outs = {}
     for run in ("wire", "host", "jax"):
@@ -1014,7 +1014,10 @@ def test_wire_run_matches_host_conversion_and_jax(driver, tmp_path,
         else:
             r = Runner(_wire_graph(tl, src, path, gain), chunk_size=1 << 14,
                        device="cpu")
-        assert (len(r._wire_srcs) == 1) == (run != "host")
+        if run == "jax":
+            assert len(r._wire_srcs) == 1
+        else:
+            assert [f.route for f in r.feeds] == [run]
         r.run()
         outs[run] = np.fromfile(path, dtype=np.complex64)
     assert outs["wire"].size >= 2 * (1 << 14)

@@ -167,7 +167,9 @@ def test_resident_ring_equals_streamed(tmp_path, fmt, n):
     stream, srun = _ring_graph(tl, path, fmt, False, chunks)
     assert res.shape == stream.shape == (chunks * CHUNK,)
     assert np.array_equal(res, stream)
-    assert rrun._resident_srcs and not srun._resident_srcs
+    assert [f.route for f in rrun.feeds] == ["resident"]
+    assert [f.route for f in srun.feeds] == ["wire" if fmt == "u8"
+                                             else "host"]
     assert rrun.h2d_copies == 0 and srun.h2d_copies == chunks
     exp, _ = _ring_graph(jl, path, fmt, True, chunks)
     assert exp.shape == res.shape
@@ -221,4 +223,4 @@ def test_resident_eligibility(tmp_path, monkeypatch):
                 tl.IQFileSink(str(tmp_path / "out.iq"), "f32le"))
     runner = Runner(top, chunk_size=CHUNK, device="cpu")
     runner.run(max_chunks=2)
-    assert not runner._resident_srcs
+    assert [f.route for f in runner.feeds] == ["host"]
