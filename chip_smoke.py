@@ -158,6 +158,13 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     carry their own message) through Tuner -> POCSAGReceiver with
     run(channels=8): each row decodes what it carries, the noise rows
     nothing;
+18a. bank-pinned: a BankSource of 64 u8 IQ files (random bytes of
+    unequal length: 6 chunks of 2^18 samples a row and a short one)
+    through the Runner with run(channels=64), the pump held back until
+    the read-ahead has read 4 chunks; every wire chunk must be staged in
+    a pinned block (Feed.pinned_chunks, BankSource.wire_reads), and the
+    converted rows must equal the same graph's on the host route bit for
+    bit;
 19. blocks: every row of the reference block benchmark (bench_blocks.py
     :150-310, the port's list in benchmarks/bench_blocks.py) timed through
     the Runner by that module at its chunk (2^22, its overrides), the two IIR rows and
@@ -305,6 +312,8 @@ from luaradio_tpu_torch.benchmarks import dma_window as pbench_dma
 from luaradio_tpu_torch.benchmarks import pll_ablate as pbench_pll
 from luaradio_tpu_torch.benchmarks import wbfm_proto as pbench_s4
 from luaradio_tpu_torch.blocks.signal import carrier
+from luaradio_tpu_torch.core import runtime as runtime_mod
+from luaradio_tpu_torch.core.ingest import Feed
 from luaradio_tpu_torch.core.runtime import Runner
 from luaradio_tpu_torch.ops import (channelizer, cudabuild, pll, pll_ablate,
                                    pll_overlap, roofline, wbfm, wbfm_proto,
@@ -2938,6 +2947,121 @@ def phase_bank_host(tmp, dev):
     return 8 * RATE / dt
 
 
+PIN_ROWS, PIN_CHUNK, PIN_CHUNKS = 64, 1 << 18, 6
+
+
+def phase_bank_pinned(tmp, dev):
+    """The wire feed's pinned staging on the card (core/ingest.py): a
+    BankSource of PIN_ROWS u8 IQ files, random bytes made on the card,
+    PIN_CHUNKS chunks of PIN_CHUNK samples a row and a short last one
+    (the rows of unequal length, so the longer rows' items past the
+    shortest's end must be zeroed), through MultiplyConstantBlock(1.0)
+    with run(channels=PIN_ROWS).  The pump's first read waits until the
+    read-ahead has read 4 chunks.  Every chunk handed to the copy must be
+    a pinned host block, ``Feed.pinned_chunks`` and
+    ``BankSource.wire_reads`` must count each, and the rows must equal
+    the same graph's with the bank on the host route bit for bit.
+    Returns the wire run's record."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    paths = []
+    for r in range(PIN_ROWS):
+        n = PIN_CHUNKS * PIN_CHUNK + 777 + 5 * r
+        paths.append(os.path.join(tmp, f"row{r}.u8"))
+        torch.randint(0, 256, (2 * n,), generator=gen, device=dev,
+                      dtype=torch.uint8).cpu().numpy().tofile(paths[-1])
+    n_min = PIN_CHUNKS * PIN_CHUNK + 777
+
+    def run(wire):
+        top, sink = CompositeBlock(), _Collect()
+        bank = BankSource([IQFileSource(p, "u8", 1e6) for p in paths])
+        if not wire:
+            bank.device_ingest = lambda: None
+        top.connect(bank, lr.MultiplyConstantBlock(1.0), sink)
+        runner = Runner(top, chunk_size=PIN_CHUNK, device=dev,
+                        channels=PIN_ROWS)
+        (feed,) = runner.feeds
+        if (feed.route, feed.pinned, feed.want) != (
+                ("wire", True, PIN_CHUNK) if wire
+                else ("host", False, PIN_CHUNK)):
+            raise AssertionError(f"bank-pinned: feed {feed.route}, pinned "
+                                 f"{feed.pinned}, want {feed.want}")
+        staged, put_ms, tail = [], [], []
+        put = runner._prefetch_put
+
+        def spy(values):
+            v = values[feed.keys[0]]
+            staged.append(isinstance(v, torch.Tensor) and v.is_pinned())
+            if len(staged) == PIN_CHUNKS + 1:   # the short chunk's tail
+                tail.append(int(np.count_nonzero(
+                    np.asarray(v)[..., 2 * (n_min % PIN_CHUNK):])))
+            t0 = time.perf_counter()
+            out = put(values)
+            put_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        runner._prefetch_put = spy
+        get, ahead = runtime_mod._Prefetcher.get, []
+
+        def full_get(self):
+            if not ahead:
+                deadline = time.monotonic() + 60
+                while len(staged) < 4 and self._thread.is_alive():
+                    if time.monotonic() > deadline:
+                        raise AssertionError(
+                            f"bank-pinned: the read-ahead read "
+                            f"{len(staged)} chunks in 60 s")
+                    time.sleep(0.005)
+                ahead.append(len(staged))
+            return get(self)
+
+        pinned0, reads0 = Feed.pinned_chunks, BankSource.wire_reads
+        runtime_mod._Prefetcher.get = full_get
+        try:
+            t0 = time.monotonic()
+            runner.run()
+            dt = time.monotonic() - t0
+        finally:
+            runtime_mod._Prefetcher.get = get
+        return (_rows(sink), staged, put_ms, ahead[0], dt, tail,
+                Feed.pinned_chunks - pinned0, BankSource.wire_reads - reads0)
+
+    run(True)       # warm-up: cuDNN, the allocators' first blocks
+    rows, staged, put_ms, ahead, dt, tail, pinned, reads = run(True)
+    host, hstaged, _, _, hdt, _, hpinned, hreads = run(False)
+    chunks = PIN_CHUNKS + 1
+    if len(staged) != chunks or not all(staged) or ahead < 4 \
+            or pinned != chunks or reads != chunks or tail != [0]:
+        raise AssertionError(f"bank-pinned: {len(staged)} chunks staged, "
+                             f"{sum(staged)} pinned, {ahead} read ahead, "
+                             f"{tail} nonzero items past the short chunk; "
+                             f"Feed.pinned_chunks {pinned}, "
+                             f"BankSource.wire_reads {reads} (want "
+                             f"{chunks})")
+    if any(hstaged) or hpinned or hreads:
+        raise AssertionError(f"bank-pinned: the host route staged "
+                             f"{sum(hstaged)} pinned, {hpinned} counted, "
+                             f"{hreads} wire reads")
+    equal = host.shape == rows.shape and np.array_equal(
+        rows.view(np.uint8), host.view(np.uint8))
+    if rows.shape != (PIN_ROWS, n_min) or not equal:
+        raise AssertionError(f"bank-pinned: wire rows {rows.shape}, host "
+                             f"rows {host.shape}, bit-equal {equal}")
+    rec = {"chunks": chunks, "read_ahead": ahead,
+           "put_ms_median": statistics.median(put_ms),
+           "msps": PIN_ROWS * n_min / dt / 1e6,
+           "host_msps": PIN_ROWS * n_min / hdt / 1e6}
+    log("bank-pinned", f"{PIN_ROWS} u8 rows x {n_min} samples, {chunks} "
+                       f"chunks of [{PIN_ROWS}, {2 * PIN_CHUNK}] u8: "
+                       f"{ahead} read ahead before the pump's first read, "
+                       f"each staged pinned (Feed.pinned_chunks {pinned}, "
+                       f"BankSource.wire_reads {reads}); rows equal to the "
+                       f"host route's bit for bit; copy enqueue "
+                       f"{rec['put_ms_median']:.3f} ms a chunk (median); "
+                       f"{rec['msps']:.1f} MS/s wire, {rec['host_msps']:.1f} "
+                       f"host route, end to end")
+    return rec
+
+
 # -- this slice: the rest of the signal blocks, file I/O, eager mode -------
 
 def block_rows(tmp):
@@ -5342,7 +5466,10 @@ def main(argv):
     classes = phase_bank_classes(dev, gen)
     with tempfile.TemporaryDirectory() as tmp:
         host_sps = phase_bank_host(tmp, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        pinned = phase_bank_pinned(tmp, dev)
     log("bank", json.dumps({"bank_mono_sps": mono["sps"],
+                            "bank_pinned": pinned,
                             "bank_mono_k2_sps": mono["k2_sps"],
                             "bank_stereo_sps": st["sps"],
                             "bank_host_sps": host_sps,

@@ -8,10 +8,10 @@ layout that ``run(channels=C)`` consumes (core/runtime.py).
 
 A bank of IQ or real file sources that all share one wire format whose
 conversion is exact in float32 (8- and 16-bit integers) takes the wire
-route (core/ingest.py): ``wire_read`` copies each child's raw items into
-its row of one [C, k n] array through the children's public wire
-contract (``wire_factor``, ``wire_dtype``, ``read_wire_into``), and the
-card converts it with the children's own converter into the samples
+route (core/ingest.py): ``read_wire_into`` copies each child's raw items
+into its row of the feed's [C, k n] block through the children's public
+wire contract (``wire_factor``, ``wire_dtype``, ``read_wire_into``), and
+the card converts it with the children's own converter into the samples
 ``read`` stacks on the host, bit for bit.  Any other bank (32-bit or
 float formats, mixed formats, IQ mixed with real, array or SDR children)
 takes the host route.
@@ -98,21 +98,25 @@ class BankSource(HostSourceBlock):
             return None
         return c0.device_ingest()
 
-    def wire_read(self, n: int):
-        """(raw [C, k * n_min] wire items, n_min) or None at EOF: each
-        child's items copied into its row of one array, allocated afresh
-        a chunk (the read-ahead queue holds chunks in flight)."""
-        k = self.wire_factor
-        raw = np.empty((len(self.children), k * n),
-                       self.children[0].wire_dtype)
-        n_min = n
-        for row, s in zip(raw, self.children):
+    @property
+    def wire_dtype(self) -> np.dtype:
+        return self.children[0].wire_dtype
+
+    def wire_shape(self, n: int) -> tuple:
+        return (len(self.children), self.wire_factor * n)
+
+    def read_wire_into(self, out: np.ndarray) -> int:
+        """Each child's items copied into its row of ``out`` [C, k n];
+        returns the fewest samples a child gave (its row and the others
+        are valid up to there), 0 at EOF."""
+        n_min = out.shape[-1] // self.wire_factor
+        for row, s in zip(out, self.children):
             got = s.read_wire_into(row)
             if got == 0:
-                return None
+                return 0
             n_min = min(n_min, got)
         BankSource.wire_reads += 1
-        return raw[:, :k * n_min], n_min
+        return n_min
 
 
 __all__ = ["BankSource"]

@@ -226,7 +226,7 @@ class _WireFileSource(_FileSourceBase):
 
     @property
     def wire_dtype(self) -> np.dtype:
-        """wire_read's item dtype: the format's, in native byte order, u16
+        """The wire items' dtype: the format's, in native byte order, u16
         as int16."""
         dt = self.format.dtype.newbyteorder("=")
         return np.dtype(np.int16) if dt == np.uint16 else dt
@@ -241,13 +241,8 @@ class _WireFileSource(_FileSourceBase):
             return None
         return self._convert(buf)
 
-    def wire_read(self, n: int):
-        out = np.empty(n * self.wire_factor, self.wire_dtype)
-        count = self.read_wire_into(out)
-        return (out[:count * self.wire_factor], count) if count else None
-
     def read_wire_into(self, out: np.ndarray) -> int:
-        """wire_read's items for up to ``out.size // wire_factor`` samples
+        """The file's items for up to ``out.size // wire_factor`` samples
         written into ``out`` (a contiguous row of ``wire_dtype``);
         returns the whole samples read (0 at EOF)."""
         got = self._read_bytes_into(out.view(np.uint8))

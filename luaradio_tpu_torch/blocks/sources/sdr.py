@@ -104,14 +104,15 @@ class _SDRSourceBase(HostSourceBlock):
             self.ring = SampleRingBuffer(cap, np.complex64)
         return self.ring
 
-    def _ring_read(self, items: int):
-        """Exactly `items` ring items, blocking while the radio produces
-        them in real time (a short mid-stream read would be misread as
-        EOF by the static-chunk runtime); the final partial batch at
-        stream close, then None at EOF; None too on a stalled producer
-        (timeout with no data — dead hardware).  The timeout scales with
-        the chunk's real-time duration so big chunks at low rates are
-        not misread as stalls."""
+    def _ring_read(self, out: np.ndarray) -> int:
+        """Exactly ``out.size`` ring items written into ``out``, blocking
+        while the radio produces them in real time (a short mid-stream
+        read would be misread as EOF by the static-chunk runtime); the
+        final partial batch at stream close, then 0 at EOF; 0 too on a
+        stalled producer (timeout with no data — dead hardware).  Returns
+        the items written.  The timeout scales with the chunk's real-time
+        duration so big chunks at low rates are not misread as stalls."""
+        items = out.size
         if items > self.ring.capacity:
             raise ValueError(
                 f"{self.name}: a chunk needs {items} ring items but the "
@@ -120,46 +121,43 @@ class _SDRSourceBase(HostSourceBlock):
         per_s = self.rate * (self.wire_factor
                              if self._wire_offset is not None else 1)
         timeout = max(self.READ_TIMEOUT, 2.0 * items / per_s)
-        out = self.ring.read_exact(items, timeout=timeout)
-        if out is None or len(out) == 0:
-            if out is not None and not self.ring.closed:
+        got = self.ring.read_exact(items, out, timeout=timeout)
+        if not got:
+            if got is not None and not self.ring.closed:
                 import warnings
                 warnings.warn(
                     f"{self.name}: no samples for {timeout:.1f}s (stalled "
                     f"producer); treating the stream as ended",
                     RuntimeWarning, stacklevel=3)
-            return None
-        if len(out) < items and not self.ring.closed:
+            return 0
+        if got < items and not self.ring.closed:
             import warnings
             warnings.warn(
-                f"{self.name}: producer stalled mid-chunk ({len(out)}/"
+                f"{self.name}: producer stalled mid-chunk ({got}/"
                 f"{items} ring items after a {timeout:.1f}s no-progress "
                 f"window); treating the partial chunk as end of stream",
                 RuntimeWarning, stacklevel=3)
-        return out
+        return got
 
     def read(self, n: int):
         """A full n-sample complex chunk (the host route)."""
         if self._wire_offset is None:
-            return self._ring_read(n)
-        wr = self.wire_read(n)
-        if wr is None:
+            out = np.empty(n, np.complex64)
+            got = self._ring_read(out)
+            return out[:got] if got else None
+        k = self.wire_factor
+        raw = np.empty(k * n, self.wire_dtype)
+        count = self.read_wire_into(raw)
+        if count == 0:
             return None
-        raw, _count = wr
-        f = (raw.astype(np.float32) - np.float32(self._wire_offset)) \
-            * np.float32(self._wire_scale)
+        f = (raw[:k * count].astype(np.float32)
+             - np.float32(self._wire_offset)) * np.float32(self._wire_scale)
         return f.view(np.complex64)
 
-    def wire_read(self, n: int):
-        """Raw interleaved wire items as (array, n_complex_valid)."""
-        k = self.wire_factor
-        raw = self._ring_read(k * n)
-        if raw is None:
-            return None
-        raw = raw[:len(raw) - (len(raw) % k)]
-        if len(raw) == 0:
-            return None
-        return raw, len(raw) // k
+    def read_wire_into(self, out: np.ndarray) -> int:
+        """Raw interleaved wire items from the ring written into ``out``;
+        returns the whole complex samples written (0 at EOF)."""
+        return self._ring_read(out) // self.wire_factor
 
     def device_ingest(self):
         """``raw tensor -> complex64`` on the tensor's device, equal to

@@ -339,8 +339,9 @@ class HostSourceBlock(SourceBlock, HostBlock):
     """Host source: read(n) returns up to n samples as a numpy array per
     output port, or None at EOF.  The rest of the ingest contract has
     defaults, and from it the runtime picks the source's route to the card
-    once (core/ingest.py): ``device_ingest``, ``wire_read`` and
-    ``wire_factor`` (wire items a sample) make the wire route,
+    once (core/ingest.py): ``device_ingest``, ``read_wire_into``,
+    ``wire_shape``, ``wire_dtype`` and ``wire_factor`` (wire items a
+    sample) make the wire route,
     ``resident_setup`` and ``resident_read`` the resident one, which
     ``resident`` takes where eligible (None), never (False) or requires
     (True: the runtime raises where it cannot be had)."""
@@ -352,15 +353,21 @@ class HostSourceBlock(SourceBlock, HostBlock):
     def read(self, n: int):
         raise NotImplementedError
 
-    def wire_read(self, n: int):
-        """Raw wire samples as (numpy integer array, n_valid) or None at
+    def wire_shape(self, n: int) -> tuple:
+        """The shape of an ``n``-sample chunk of wire items."""
+        return (self.wire_factor * n,)
+
+    def read_wire_into(self, out) -> int:
+        """The next chunk's raw wire items (``wire_dtype``) written into
+        ``out`` (``wire_shape``, contiguous; the caller zeroes what lies
+        past the valid samples); returns the whole samples written, 0 at
         EOF.  Only called when device_ingest() returned a converter."""
         raise NotImplementedError
 
     def device_ingest(self):
-        """Return a function converting the wire_read array (as a tensor on
-        the device) to the block's samples, or None when this source does
-        not support device-side conversion (the default)."""
+        """Return a function converting a chunk of wire items (as a tensor
+        on the device) to the block's samples, or None when this source
+        does not support device-side conversion (the default)."""
         return None
 
     def resident_setup(self, chunk: int) -> bool:

@@ -438,7 +438,7 @@ class Runner:
                                             for _ in range(self._rows)]
 
         #: each host source's route to the card (core/ingest.py)
-        self.feeds = plan_feeds(self.sources, g, self.bid)
+        self.feeds = plan_feeds(self.sources, g, self.bid, self.device)
         self._read_on_pump = mode == "eager" or all(
             f.route == "resident" for f in self.feeds)
 
@@ -483,14 +483,17 @@ class Runner:
     def _prefetch_put(self, values: dict) -> dict:
         """A chunk's values with the copied feeds' payloads moved to the
         device (the graph's device, named explicitly: in fused mode this
-        runs on the read-ahead thread, in eager mode on the pump)."""
+        runs on the read-ahead thread, in eager mode on the pump).  A
+        pinned wire block's copy does not wait: it is queued on the card's
+        default stream, which both threads share, so the pump's kernels
+        that read the chunk run after it."""
         for f in self.feeds:
             if f.copied:    # device blocks take arrays, never host objects
                 for k in f.keys:
                     values[k] = self._to_device(values[k])
         return values
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+    def _to_device(self, arr) -> torch.Tensor:
         with self._h2d_lock:
             self.h2d_copies += 1
         return to_device(arr, self.device)

@@ -55,8 +55,13 @@ def wire_converter(offset: float, scale: float, *, divide: bool,
     return convert
 
 
-def to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """Host numpy array -> tensor on ``device`` (complex stays complex)."""
+def to_device(arr, device) -> torch.Tensor:
+    """Host numpy array -> tensor on ``device`` (complex stays complex).
+    A host tensor (a wire feed's pinned block, core/ingest.py) is copied
+    as itself without waiting, so that the caching host allocator records
+    the copy on the block and reuses it only once the copy is done."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device, non_blocking=True)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 

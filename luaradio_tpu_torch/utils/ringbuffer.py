@@ -113,17 +113,19 @@ class SampleRingBuffer:
             self._nonempty.notify_all()  # wakes write_blocking producers
             return out
 
-    def read_exact(self, n: int, timeout: float | None = None):
-        """Read EXACTLY n samples, blocking until they have accumulated —
-        the live-streaming contract: a paced radio fills the ring in real
-        time and a short read mid-stream would be misread as EOF by the
+    def read_exact(self, n: int, out: np.ndarray,
+                   timeout: float | None = None) -> int | None:
+        """Read EXACTLY n samples into ``out`` (at least n long) and return
+        their count, blocking until they have accumulated — the
+        live-streaming contract: a paced radio fills the ring in real time
+        and a short read mid-stream would be misread as EOF by the
         static-chunk runtime.  At close the remaining (< n) samples are
-        returned, then None (EOF).  ``timeout`` is a NO-PROGRESS timeout:
-        while the producer keeps delivering samples (a radio sustainedly
-        below the nominal rate — driver round-down, USB contention) the
-        wait restarts, so only a genuinely stalled producer (dead
-        hardware, paused stream) returns short — whatever is available,
-        possibly empty."""
+        read, then None is returned (EOF).  ``timeout`` is a NO-PROGRESS
+        timeout: while the producer keeps delivering samples (a radio
+        sustainedly below the nominal rate — driver round-down, USB
+        contention) the wait restarts, so only a genuinely stalled
+        producer (dead hardware, paused stream) returns short — whatever
+        is available, possibly none."""
         with self._nonempty:
             while True:
                 wr_before = self._wr
@@ -134,20 +136,17 @@ class SampleRingBuffer:
                 if self._wr == wr_before:
                     break  # true stall: no samples in a full window
             avail = self._wr - self._rd
-            if avail == 0:
-                if self._closed:
-                    return None  # closed and drained
-                return np.empty(0, dtype=self._buf.dtype)
+            if avail == 0 and self._closed:
+                return None  # closed and drained
             take = min(n, avail)
             pos = self._rd % self.capacity
             first = min(take, self.capacity - pos)
-            out = np.empty(take, dtype=self._buf.dtype)
             out[:first] = self._buf[pos:pos + first]
             if first < take:
-                out[first:] = self._buf[:take - first]
+                out[first:take] = self._buf[:take - first]
             self._rd += take
             self._nonempty.notify_all()  # wakes write_blocking producers
-            return out
+            return take
 
     def close(self):
         """Producer EOF / shutdown: readers drain the remainder then get

@@ -2,13 +2,14 @@
 """Only the bank phases of chip_smoke.py, on one card: the quick way to
 iterate on the channel banks without the earlier phases' minute.
 
-    python3 scratch/bank_phases.py [mono,stereo,time,classes,host]
+    python3 scratch/bank_phases.py [mono,stereo,time,classes,host,pinned]
 
 Builds the kernel sources (csrc/), then runs the named phases (all by
 default) exactly as chip_smoke.py does: bank-mono, bank-stereo, K3 and
 the overlap scan timed batched (with the two chain probes measured
-first, as chip_smoke.py's phases 8 and 9 measure them), bank-classes and
-bank-host.  Each phase raises on a failed check.
+first, as chip_smoke.py's phases 8 and 9 measure them), bank-classes,
+bank-host and bank-pinned (which needs no kernel build: ``pinned``
+alone builds nothing).  Each phase raises on a failed check.
 """
 
 import json
@@ -27,8 +28,9 @@ from luaradio_tpu_torch.ops import cudabuild, pll, pll_overlap  # noqa: E402
 
 def main(argv):
     which = argv[0].split(",") if argv else [
-        "mono", "stereo", "time", "classes", "host"]
-    cudabuild.build(cudabuild.SOURCES)
+        "mono", "stereo", "time", "classes", "host", "pinned"]
+    if which != ["pinned"]:
+        cudabuild.build(cudabuild.SOURCES)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     if "mono" in which:
@@ -51,6 +53,9 @@ def main(argv):
     if "host" in which:
         with tempfile.TemporaryDirectory() as tmp:
             print(cs.phase_bank_host(tmp, dev))
+    if "pinned" in which:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps(cs.phase_bank_pinned(tmp, dev)))
     return 0
 
 

@@ -90,10 +90,15 @@ def main():
             src = make()
             src.initialize()
             wire = src.device_ingest() is not None
-            read = (lambda: src.wire_read(CHUNK)) if wire else (
-                lambda: src.read(CHUNK))
+            if wire:
+                def read():
+                    raw = np.empty(src.wire_shape(CHUNK), src.wire_dtype)
+                    src.read_wire_into(raw)
+                    return raw
+            else:
+                def read():
+                    return src.read(CHUNK)
             arr = read()
-            arr = arr[0] if wire else arr
             pinned = torch.from_numpy(np.ascontiguousarray(arr)).pin_memory()
             out[name] = {
                 "msps": CHUNKS * CHUNK / dt / 1e6,

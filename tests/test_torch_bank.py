@@ -35,6 +35,7 @@ import luaradio_tpu as jl  # noqa: E402
 import luaradio_tpu_torch as tl  # noqa: E402
 from luaradio_tpu.parallel import rds as jax_rds  # noqa: E402
 from luaradio_tpu.parallel import wbfm as jax_wbfm  # noqa: E402
+from luaradio_tpu_torch.core.ingest import Feed  # noqa: E402
 from luaradio_tpu_torch.core.runtime import Runner  # noqa: E402
 from luaradio_tpu_torch.interop import bank_state_from_jax  # noqa: E402
 from luaradio_tpu_torch.parallel import rds as port_rds  # noqa: E402
@@ -238,7 +239,7 @@ def _file_bank(paths, fmt, kind, repeat=False, mapped=True):
 @pytest.mark.parametrize("kind", ["iq", "real"])
 @pytest.mark.parametrize("fmt", sorted(_WIRE))
 def test_wire_bank_equals_host_read(tmp_path, fmt, kind, repeat, mapped):
-    """The bank's wire_read through its device_ingest (on CPU tensors)
+    """The bank's read_wire_into through its device_ingest (on CPU tensors)
     equals BankSource.read bit for bit, chunk by chunk: children of
     unequal length holding every code of the format, then a short chunk
     and EOF at the earliest child, or (repeat_on_eof) the seams of every
@@ -254,14 +255,14 @@ def test_wire_bank_equals_host_read(tmp_path, fmt, kind, repeat, mapped):
     want = n0 // 3 + 1
     shapes = []
     for _ in range(2 * max(lengths) // want + 2):
-        exp, got = host.read(want), wire.wire_read(want)
+        k = 2 if kind == "iq" else 1
+        raw = np.empty(wire.wire_shape(want), wire.wire_dtype)
+        exp, nv = host.read(want), wire.read_wire_into(raw)
         if exp is None:
-            assert got is None
+            assert nv == 0
             break
-        raw, nv = got
-        assert raw.dtype.kind in "iu" and raw.shape == (3, nv * (
-            2 if kind == "iq" else 1))
-        y = conv(torch.from_numpy(raw)).numpy()
+        assert raw.dtype.kind in "iu" and raw.shape == (3, want * k)
+        y = conv(torch.from_numpy(raw[:, :nv * k])).numpy()
         assert y.dtype == exp.dtype and y.shape == exp.shape
         assert np.array_equal(y.view(np.uint8), exp.view(np.uint8))
         shapes.append(nv)
@@ -273,6 +274,41 @@ def test_wire_bank_equals_host_read(tmp_path, fmt, kind, repeat, mapped):
     else:   # short at the earliest child's end, then EOF
         full = n0 // want
         assert shapes == [want] * full + [n0 - full * want]
+
+
+def test_wire_feed_chunks_read_ahead_keep_their_contents(tmp_path):
+    """Four chunks of a u8 bank's wire feed on the CPU (each a fresh
+    array), read before any is consumed, keep their own items: converted,
+    each equals the host route's samples bit for bit.  The short last
+    chunk ends at the earliest child's end; the longer children's items
+    past it are zeroed and nvalid is that child's count.  Nothing is
+    staged pinned."""
+    want = 1000
+    lengths = (3 * want + 400, 3 * want + 250, 3 * want + 900)
+    paths = _wire_files(tmp_path, "u8", "iq", lengths,
+                        np.random.default_rng(11))
+    host = _file_bank(paths, "u8", "iq")
+    wire = _file_bank(paths, "u8", "iq")
+    feed = Feed(wire, "wire", ["b.0"], want, copied=True,
+                ingest=wire.device_ingest())
+    pinned = Feed.pinned_chunks
+    chunks = []
+    for _ in range(4):
+        values, nvalid = {}, {}
+        short = feed.read(values, nvalid)
+        chunks.append((values["b.0"], nvalid["b.0"], short))
+    assert feed.read({}, {}) is None
+    assert Feed.pinned_chunks == pinned
+    assert [(nv, short) for _, nv, short in chunks] == [
+        (want, False)] * 3 + [(250, True)]
+    for raw, nv, _ in chunks:
+        assert isinstance(raw, np.ndarray) and raw.shape == (3, 2 * want)
+        assert not raw[:, 2 * nv:].any()
+        y = feed.ingest(torch.from_numpy(raw[:, :2 * nv])).numpy()
+        exp = host.read(want)
+        assert np.array_equal(y.view(np.uint8), exp.view(np.uint8))
+    host.cleanup()
+    wire.cleanup()
 
 
 def _u8_iq(x):

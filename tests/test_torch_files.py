@@ -20,6 +20,7 @@ import luaradio_tpu as jl  # noqa: E402
 import luaradio_tpu_torch as tl  # noqa: E402
 from luaradio_tpu.cli import main as jax_main  # noqa: E402
 from luaradio_tpu_torch.cli import main as port_main  # noqa: E402
+from luaradio_tpu_torch.core.ingest import Feed  # noqa: E402
 from luaradio_tpu_torch.core.runtime import Runner  # noqa: E402
 from luaradio_tpu_torch.utils import format as fu  # noqa: E402
 
@@ -144,6 +145,53 @@ def test_realfile_source_feeds_device_blocks(fmt, resident, tmp_path):
 
 
 # -- RawFileSink / RawFileSource --------------------------------------------------
+
+def test_wire_feed_chunks_read_ahead_keep_their_contents(tmp_path):
+    """A u8 IQFileSource's wire feed as a CPU Runner plans it (not
+    pinned): four chunks read before any is consumed keep their own
+    items, each equal after conversion to the host route's samples bit
+    for bit.  The file ends mid-sample; the short last chunk's tail, the
+    stray I item included, is zero and its nvalid the whole samples.  A
+    run stages nothing pinned and gives the host conversion times 2."""
+    raw = RNG.integers(0, 256, 2 * (3 * 1024 + 300) + 1).astype(np.uint8)
+    path = str(tmp_path / "x.u8")
+    raw.tofile(path)
+
+    def graph():
+        top, sink = tl.CompositeBlock(), _collector(tl)
+        src = tl.IQFileSource(path, "u8", 1e6)
+        top.connect(src, tl.MultiplyConstantBlock(2.0), sink)
+        return top, src, sink
+
+    top, src, _ = graph()
+    (feed,) = Runner(top, chunk_size=1024, device="cpu").feeds
+    assert feed.route == "wire" and not feed.pinned and feed.want == 1024
+    host = tl.IQFileSource(path, "u8", 1e6)
+    for s in (src, host):
+        s.differentiate([])
+        s.initialize()
+    pinned = Feed.pinned_chunks
+    chunks = []
+    for _ in range(4):
+        values, nvalid = {}, {}
+        short = feed.read(values, nvalid)
+        chunks.append((values[feed.keys[0]], nvalid[feed.keys[0]], short))
+    assert feed.read({}, {}) is None
+    assert [(nv, short) for _, nv, short in chunks] == [
+        (1024, False)] * 3 + [(300, True)]
+    exp = []
+    for w, nv, _ in chunks:
+        assert w.shape == (2 * 1024,) and not w[2 * nv:].any()
+        exp.append(host.read(1024))
+        assert np.array_equal(feed.ingest(torch.from_numpy(w[:2 * nv]))
+                              .numpy().view(np.uint8),
+                              exp[-1].view(np.uint8))
+    top, _, sink = graph()
+    Runner(top, chunk_size=1024, device="cpu").run()
+    assert Feed.pinned_chunks == pinned
+    np.testing.assert_array_equal(np.concatenate(sink.got),
+                                  2 * np.concatenate(exp))
+
 
 @pytest.mark.parametrize("kind", ["complex", "real", "bit"])
 def test_rawfile_round_trip_matches_jax(kind, tmp_path):

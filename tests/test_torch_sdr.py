@@ -32,6 +32,7 @@ from luaradio_tpu.blocks.sources import sdr as jsdr  # noqa: E402
 from luaradio_tpu.core.runtime import Runner as JRunner  # noqa: E402
 from luaradio_tpu_torch.blocks.sinks import sdr as tsink  # noqa: E402
 from luaradio_tpu_torch.blocks.sources import sdr as tsdr  # noqa: E402
+from luaradio_tpu_torch.core.ingest import Feed  # noqa: E402
 from luaradio_tpu_torch.core.runtime import Runner  # noqa: E402
 from luaradio_tpu_torch.utils.ringbuffer import \
     SampleRingBuffer  # noqa: E402
@@ -155,10 +156,10 @@ def test_ringbuffer_read_exact_slow_producer_not_eof():
     t = threading.Thread(target=slow_producer, daemon=True)
     t.start()
     try:
-        got = rb.read_exact(100, timeout=0.15)
-        assert got is not None and len(got) == 100
+        out = np.full(100, -1.0, np.float32)
+        assert rb.read_exact(100, out, timeout=0.15) == 100
         np.testing.assert_array_equal(
-            got, np.repeat(np.arange(10, dtype=np.float32), 10))
+            out, np.repeat(np.arange(10, dtype=np.float32), 10))
     finally:
         stop.set()
         t.join(timeout=2.0)
@@ -168,9 +169,31 @@ def test_ringbuffer_read_exact_true_stall_returns_partial():
     rb = SampleRingBuffer(256, np.float32)
     rb.write(np.arange(30, dtype=np.float32))
     t0 = time.monotonic()
-    got = rb.read_exact(100, timeout=0.1)
+    out = np.full(100, -1.0, np.float32)
+    got = rb.read_exact(100, out, timeout=0.1)
     assert time.monotonic() - t0 < 1.0
-    assert len(got) == 30
+    assert got == 30
+    np.testing.assert_array_equal(out[:30], np.arange(30, dtype=np.float32))
+
+
+def test_ringbuffer_read_exact_into_out_across_the_wrap():
+    """read_exact writes the samples into ``out`` across the ring's
+    wrap and returns their count, nothing past it; a stall returns what
+    there is, and a closed, drained ring None."""
+    rb = SampleRingBuffer(16, np.int16)
+    rb.write(np.arange(12, dtype=np.int16))
+    out = np.full(16, -1, np.int16)
+    assert rb.read_exact(10, out) == 10
+    rb.write(np.arange(12, 24, dtype=np.int16))     # wraps at 16
+    out[:] = -1
+    assert rb.read_exact(14, out) == 14
+    np.testing.assert_array_equal(out[:14], np.arange(10, 24))
+    assert (out[14:] == -1).all()
+    rb.write(np.arange(3, dtype=np.int16))
+    assert rb.read_exact(8, out, timeout=0.05) == 3
+    np.testing.assert_array_equal(out[:3], np.arange(3))
+    rb.close()
+    assert rb.read_exact(8, out) is None
 
 
 # ---------------------------------------------------------------------------
@@ -814,8 +837,8 @@ def test_sdr_stall_warns_instead_of_silent_eof():
     src.ring.write(np.zeros(10, np.uint8))   # some data, then silence
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
-        out = src._ring_read(100)
-    assert out is not None and len(out) == 10
+        got = src._ring_read(np.empty(100, np.uint8))
+    assert got == 10
     assert any("stalled" in str(x.message) for x in w)
 
 
@@ -963,6 +986,40 @@ def test_device_ingest_equals_read_over_every_code(driver):
     exp = ((raw.astype(np.float32) - np.float32(offset))
            * np.float32(scale)).view(np.complex64)
     np.testing.assert_array_equal(host, exp)
+
+
+def test_wire_feed_chunks_read_ahead_keep_their_contents():
+    """An s8 HackRF ring's wire feed on the CPU: four chunks read before
+    any is consumed keep their own items, each equal after conversion to
+    read()'s host conversion of a twin ring, bit for bit.  At the ring's
+    close the short last chunk's tail is zero and its nvalid right.
+    Nothing is staged pinned."""
+    want = 1000
+    raw = np.random.default_rng(5).integers(
+        -128, 128, 2 * (3 * want + 321)).astype(np.int8)
+    wire, host = tl.HackRFSource(1e8, 1e6), tl.HackRFSource(1e8, 1e6)
+    for s in (wire, host):
+        s._make_ring()
+        s.ring.write(raw)
+        s.ring.close()
+    feed = Feed(wire, "wire", ["h.0"], want, copied=True,
+                ingest=wire.device_ingest())
+    pinned = Feed.pinned_chunks
+    chunks = []
+    for _ in range(4):
+        values, nvalid = {}, {}
+        short = feed.read(values, nvalid)
+        chunks.append((values["h.0"], nvalid["h.0"], short))
+    assert feed.read({}, {}) is None
+    assert Feed.pinned_chunks == pinned
+    assert [(nv, short) for _, nv, short in chunks] == [
+        (want, False)] * 3 + [(321, True)]
+    for w, nv, _ in chunks:
+        assert w.dtype == np.int8 and w.shape == (2 * want,)
+        assert not w[2 * nv:].any()
+        np.testing.assert_array_equal(
+            feed.ingest(torch.from_numpy(w[:2 * nv])).numpy(),
+            host.read(want))
 
 
 def _wire_graph(mod, src, path, gain):
