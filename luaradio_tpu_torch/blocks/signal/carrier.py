@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from luaradio_tpu_torch.blocks.signal.digital import hysteresis
+from luaradio_tpu_torch.core import trace
 from luaradio_tpu_torch.core.block import Input, Output, SignalBlock
 from luaradio_tpu_torch.ops import fir as fir_ops
 from luaradio_tpu_torch.ops.scan import cummax_blocked, linrec_first_order
@@ -38,7 +39,15 @@ class PLLBlock(SignalBlock):
     row, each row what it gives alone, with state leaves [C]: each tier
     takes its rows in one call.  (The JAX block scans axis 0 of such a
     batch and fails; under its channel mesh it vmaps the one-stream
-    block, which is what the port matches.)"""
+    block, which is what the port matches.)
+
+    Tracing (core/trace.py): each chunk's work is the span
+    ``pll.dispatch`` and, on a CUDA card, its device time the span
+    ``pll.device``: CUDA events on the pump's stream before the linear
+    tier and after the last tier's launches, so its window also holds the
+    card's idle gaps while the host reads the tier flags
+    (``pll.host_read``, children of ``pll.dispatch``) and chooses the
+    next tier's rows."""
 
     def __init__(self, loop_bandwidth: float, frequency_min: float,
                  frequency_max: float, multiplier: float = 1.0,
@@ -84,8 +93,12 @@ class PLLBlock(SignalBlock):
         return tuple(st2.unbind(-1)), (out, err)
 
     def process(self, state, x):
-        if x.dim() > 2:
-            return self._rows(state, x)
+        with trace.device_span("pll.dispatch", "pll.device", x.device):
+            if x.dim() > 2:
+                return self._rows(state, x)
+            return self._step(state, x)
+
+    def _step(self, state, x):
         mult = self.multiplier
         if float(mult).is_integer() and mult >= 1:
             from luaradio_tpu_torch.ops.pll_linear import pll_hybrid
@@ -106,7 +119,7 @@ class PLLBlock(SignalBlock):
         flat = tuple(torch.as_tensor(s, dtype=torch.float32,
                                      device=x.device).expand(lead)
                      .reshape(-1) for s in state)
-        st, (out, err) = self.process(flat, x.reshape(-1, n).contiguous())
+        st, (out, err) = self._step(flat, x.reshape(-1, n).contiguous())
         return (tuple(v.reshape(lead) for v in st),
                 (out.reshape(x.shape), err.reshape(x.shape)))
 

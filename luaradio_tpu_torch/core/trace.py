@@ -11,7 +11,9 @@ and the chunk it carries:
     sources.h2d             read-ahead  -                       chunk
     sources.wait            pump        -                       chunk
     segment[i].dispatch     pump        -                       chunk
-    pll.host_read           pump        segment[i].dispatch     host read
+    pll.dispatch            pump        segment[i].dispatch     chunk
+    pll.host_read           pump        pll.dispatch            host read
+    pll.device              pump (card) pll.dispatch            chunk
     channelizer.dispatch    pump        segment[i].dispatch     chunk
     channelizer.device      pump (card) channelizer.dispatch    chunk
     chunk.hold              pump        -                       chunk
@@ -25,7 +27,12 @@ for the read-ahead thread's next chunk (fused mode only).
 ``segment[i].dispatch`` queues stage i's device work; it times the host's
 queueing, not the card, except where an op reads the card on the host:
 ``pll.host_read`` is one such read of the PLL's guards (ops/pll_linear.py),
-which waits for every kernel queued before it.  ``channelizer.dispatch``
+which waits for every kernel queued before it.  ``pll.dispatch`` is a
+PLLBlock's work on a chunk, its tiers and their reads, and on a CUDA
+device ``pll.device`` its time on the card by a pair of events as below,
+which also holds the card's idle gaps while the host reads the tier
+flags and picks the next tier's rows (blocks/signal/carrier.py).
+``channelizer.dispatch``
 queues the polyphase channelizer's work (blocks/signal/channelizer.py),
 and on a CUDA device ``channelizer.device`` is that work's time on the
 card: a pair of CUDA events recorded on the pump's stream before and after
@@ -54,7 +61,9 @@ the channel rows the channelizer has emitted (C a chunk, times any batch
 in front), ``channelize.launches`` (ops/channelizer.py) the launches of
 the channelizer's kernel, one a chunk on a card, and
 ``ChannelizerBlock.stock_chunks`` the chunks a card ran on the stock
-path instead (a shape the kernel does not take).  ``chunk`` is the
+path instead (a shape the kernel does not take);
+``pll_hybrid.scan_rows`` and ``pll_hybrid.k3_rows`` (ops/pll_linear.py)
+the row-chunks the PLL's overlap scan and K3 solved.  ``chunk`` is the
 chunk's sequence number from 0, assigned by the reader in read order; a
 span opened without one carries its parent's.  To ask why chunk k was
 late, join its records on ``chunk == k``: its read and copy, the pump's

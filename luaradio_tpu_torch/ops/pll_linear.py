@@ -141,6 +141,16 @@ def pll_linear(x, state, alpha, beta, fmin, fmax, mult: int):
     return valid, new_state, out.to(c64), err
 
 
+def _vco(x: torch.Tensor, err: torch.Tensor,
+         out: torch.Tensor) -> torch.Tensor:
+    """The VCO the loop measured ``err`` against, x / |x| exp(-j err)
+    (the linear tier's output at multiplier 1), where x != 0; ``out``
+    where x == 0 (the phase detector reads 0 there)."""
+    mag = x.abs()
+    vco = x / torch.clamp(mag, min=1e-30) * _rot(-err)
+    return torch.where(mag > 0, vco, out)
+
+
 def _host(t: torch.Tensor) -> list:
     """One device-to-host read of a small tensor (counted, and timed as
     span ``pll.host_read`` where the thread has a tracer: the read waits
@@ -172,8 +182,18 @@ def pll_hybrid(x, state, alpha, beta, fmin, fmax, mult: int, sequential,
     is (``pll_hybrid.host_reads`` counts them).  Rows are gathered with
     ``index_select`` and scattered back.  ``allow_overlap=False``
     (PLLBlock(exact=True)) skips tier 2.  ``row_tiers``, when given, is
-    filled with the tier (1, 2 or 3) each row took.  Returns (state',
-    (out, err))."""
+    filled with the tier (1, 2 or 3) each row took;
+    ``pll_hybrid.scan_rows`` and ``pll_hybrid.k3_rows`` count the
+    row-chunks tiers 2 and 3 solved.
+
+    At multiplier 1 the output oscillator is the VCO (pll.lua's
+    phi_multiplied takes phi's steps), and the state's phi_m is phi_l.
+    The overlap scan tracks the output as a second phasor chained across
+    its segments, which walks off the VCO (~1e-5 rad a 2^16-sample chunk
+    in its CPU twin, carried from chunk to chunk through phi_m), so its
+    rows take
+    the VCO as the linear tier builds it, x / |x| exp(-j err), where
+    x != 0.  Returns (state', (out, err))."""
     from luaradio_tpu_torch.ops.pll_overlap import (plan_overlap,
                                                     pll_overlap_discard)
 
@@ -236,15 +256,21 @@ def pll_hybrid(x, state, alpha, beta, fmin, fmax, mult: int, sequential,
                                 dtype=torch.long, device=dev)
             pick = (lambda t: t.reshape(len(scan_rows), -1)
                     .index_select(0, keep))
+            if mult == 1:
+                b_out = _vco(xs, b_err, b_out)
             solve(good, [pick(v) for v in b_state], pick(b_out),
                   pick(b_err))
         taken(2, good)
+        pll_hybrid.scan_rows += len(good)
         todo = [r for r in todo if r not in set(good)]
     if todo:
         xs, ss = gather(todo)
         s_state, (s_out, s_err) = sequential(ss, xs)
         solve(todo, s_state, s_out, s_err)
         taken(3, todo)
+        pll_hybrid.k3_rows += len(todo)
+    if mult == 1:
+        st = (st[0], st[0].clone(), st[2])
     if row_tiers is not None:
         row_tiers[:] = took
     if one:
@@ -253,6 +279,8 @@ def pll_hybrid(x, state, alpha, beta, fmin, fmax, mult: int, sequential,
 
 
 pll_hybrid.host_reads = 0
+pll_hybrid.scan_rows = 0
+pll_hybrid.k3_rows = 0
 
 
 def pll_newton_segment(x, state, alpha, beta, fmin, fmax, mult: int,

@@ -1,12 +1,13 @@
 """The channelizer kernel (csrc/channelizer.cu) on a CUDA card against its
 twin (ops/channelizer.py channelize_reference, the stock path, on the same
-card), at the band cell's (C 100, q 16) and the bank's (64, 8) shapes: a
-chunk, a ragged chunk shorter than C q after it (the state carried), and
-a batch of 3 rows with states of their own.  The new state must equal the
-twin's and every channel lie within 2e-6 of that channel's full scale
-(float32 sums in another order: the branch FIRs by fused multiply-adds,
-the DFT in two stages of 10 or 8 against cuFFT).  Skipped without a card;
-on the card (this file imports no JAX; the conftest does, so it is left
+card), at the FM band cell's (C 100, q 16), the AM band cell's (117, 16:
+odd radices 9 x 13) and the bank's (64, 8) shapes: a chunk, a ragged
+chunk shorter than C q after it (the state carried), and a batch of 3
+rows with states of their own.  The new state must equal the twin's and
+every channel lie within 2e-6 of that channel's full scale (float32 sums
+in another order: the branch FIRs by fused multiply-adds, the DFT in two
+stages of 10, 9 x 13 or 8 against cuFFT).  Skipped without a card; on
+the card (this file imports no JAX; the conftest does, so it is left
 out):
 
     python -m pytest --noconftest -p no:cacheprovider -q \\
@@ -33,7 +34,7 @@ def _noise(gen, shape, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,q", [(100, 16), (64, 8)])
+@pytest.mark.parametrize("c,q", [(100, 16), (117, 16), (64, 8)])
 def test_kernel_matches_twin(dev, c, q):
     blk = ChannelizerBlock(c, q)
     blk.device = dev

@@ -1,6 +1,7 @@
 """The runtime's span records (luaradio_tpu_torch/core/trace.py): chunk
 ids and parents on every span of the pump and the read-ahead thread, the
-pipelined hold, the PLL's host reads as children of their dispatch, the
+pipelined hold, the PLL's host reads as children of its dispatch span
+and that of its segment's, the PLL's device span and row counters, the
 channelizer's dispatch span and its device span (resolved from CUDA
 events, here fakes), the same spans as torch.profiler annotations on the
 records' clock, nothing made with tracing off, and the bounded buffer
@@ -156,7 +157,8 @@ def test_eager_run_reads_on_the_pump(tmp_path):
 
 def test_pll_host_reads_are_children_of_their_dispatch(tmp_path):
     """Each of pll_hybrid's host reads is one ``pll.host_read`` record,
-    inside the dispatch of its segment and chunk."""
+    inside the PLL's dispatch (``pll.dispatch``, one a chunk) of its
+    chunk, itself inside the dispatch of its segment."""
     r = Runner(_stereo_graph(tmp_path), chunk_size=4096, trace=True,
                device="cpu")
     before = pll_hybrid.host_reads
@@ -165,8 +167,10 @@ def test_pll_host_reads_are_children_of_their_dispatch(tmp_path):
     ev = r.tracer.events()
     got = _by(ev, name="pll.host_read")
     assert reads >= r.chunks_processed and len(got) == reads
-    assert all(e.parent.startswith("segment[") and e.chunk is not None
+    assert all(e.parent == "pll.dispatch" and e.chunk is not None
                for e in got)
+    for k in range(r.chunks_processed):
+        assert _one(ev, "pll.dispatch", k).parent.startswith("segment[")
     _parents_hold(ev)
     assert r.tracer.report()["pll.host_read"]["count"] == reads
 
@@ -382,3 +386,103 @@ def test_run_sets_the_current_tracer_on_its_threads(tmp_path, name):
     finally:
         mp.undo()
     assert seen["t"] is r.tracer and trace.current() is None
+
+
+def _am_graph(tmp_path, seconds=0.2, rate=40000.0):
+    """AMSynchronousDemodulator over a 1 kHz tone on a carrier 12 Hz off
+    the channel's centre, with noise: its carrier PLL leaves the linear
+    tier."""
+    rng = np.random.default_rng(29)
+    n = int(rate * seconds)
+    t = np.arange(n) / rate
+    x = (1 + 0.6 * np.cos(2 * np.pi * 1000.0 * t)) \
+        * np.exp(1j * (2 * np.pi * 12.0 * t + 0.3)) \
+        + 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    top = tl.CompositeBlock()
+    top.connect(tl.IQFileSource(_iq_file(tmp_path, x), "f32le", rate),
+                tl.AMSynchronousDemodulator(0.0, 4500.0), _Collect())
+    return top
+
+
+def test_pll_dispatch_once_a_chunk(tmp_path):
+    """With a tracer on the CPU: one ``pll.dispatch`` a chunk, inside its
+    segment's dispatch and of its chunk, holding the chunk's
+    ``pll.host_read`` records; no ``pll.device`` (no card)."""
+    r = Runner(_am_graph(tmp_path), chunk_size=2048, trace=True,
+               device="cpu")
+    r.run()
+    ev = r.tracer.events()
+    rep = r.tracer.report()
+    assert r.chunks_processed == 4
+    assert rep["pll.dispatch"]["count"] == r.chunks_processed
+    assert "pll.device" not in rep
+    for k in range(r.chunks_processed):
+        rec = _one(ev, "pll.dispatch", k)
+        assert rec.parent.startswith("segment[")
+        assert _inside(rec, _one(ev, rec.parent, k))
+        reads = _by(ev, name="pll.host_read", chunk=k)
+        assert reads and all(_inside(e, rec) for e in reads)
+    _parents_hold(ev)
+
+
+def test_pll_opens_its_device_span_once_a_chunk(tmp_path, monkeypatch):
+    """PLLBlock asks the tracer for the pair ``pll.dispatch`` /
+    ``pll.device`` on its input's device once a chunk, and opens nothing
+    else of its own."""
+    asked = []
+    orig = trace.Tracer.device_span
+
+    def spy(self, name, device_name, device):
+        asked.append((name, device_name, device.type))
+        return orig(self, name, device_name, device)
+    monkeypatch.setattr(trace.Tracer, "device_span", spy)
+    r = Runner(_am_graph(tmp_path), chunk_size=2048, trace=True,
+               device="cpu")
+    r.run()
+    assert asked == [("pll.dispatch", "pll.device", "cpu")] \
+        * r.chunks_processed
+
+
+def test_pll_untraced_records_nothing(tmp_path, monkeypatch):
+    """With no tracer the PLL opens no span and makes no device span; its
+    row counters still count."""
+    def boom(*a, **k):
+        raise AssertionError("entered with tracing off")
+    monkeypatch.setattr(trace.Tracer, "device_span", boom)
+    monkeypatch.setattr(trace.Tracer, "_add", boom)
+    before = pll_hybrid.scan_rows + pll_hybrid.k3_rows
+    r = Runner(_am_graph(tmp_path), chunk_size=2048, trace=False,
+               device="cpu")
+    r.run()
+    assert r.tracer is None and r.chunks_processed == 4
+    assert pll_hybrid.scan_rows + pll_hybrid.k3_rows > before
+
+
+def test_pll_row_counters_follow_the_tiers():
+    """``pll_hybrid.scan_rows`` and ``k3_rows`` count the row-chunks the
+    overlap scan and K3 solved: on a bank of a locked carrier, a weak
+    carrier from a cold start, noise and zeros (tiers 1, 2, 3, 3), each
+    grows by what ``PLLBlock.tier_counts`` gives its tier."""
+    blk = tl.PLLBlock(1e3, 200e3, 220e3)
+    blk.device = torch.device("cpu")
+    blk.differentiate([tl.ComplexFloat32])
+    blk.input_rate = 1e6
+    blk.initialize()
+    rng = np.random.default_rng(41)
+    n = 8192
+    t = np.arange(n)
+    w = 2 * np.pi * 0.208
+    noise = rng.standard_normal((4, n)) + 1j * rng.standard_normal((4, n))
+    x = np.stack([np.exp(1j * (w * t + 0.4)) + 0.01 * noise[0],
+                  0.4 * np.exp(1j * (w * t + 1.1)) + 0.4 * noise[1],
+                  noise[2], np.zeros(n)]).astype(np.complex64)
+    f0 = float((blk._freq_min + blk._freq_max) / 2)
+    st = (torch.tensor([0.4, 0.0, 0.0, 0.0]),
+          torch.tensor([0.4, 0.0, 0.0, 0.0]),
+          torch.tensor([float(np.float32(w)), f0, f0, f0]))
+    scan0, k30 = pll_hybrid.scan_rows, pll_hybrid.k3_rows
+    for _ in range(2):
+        st, _ = blk.process(st, torch.from_numpy(x))
+    assert blk.row_tiers == [1, 2, 3, 3]
+    assert pll_hybrid.scan_rows - scan0 == blk.tier_counts[2] >= 1
+    assert pll_hybrid.k3_rows - k30 == blk.tier_counts[3] >= 2
