@@ -128,6 +128,18 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     shorter than C q) and a batch of 3 rows (new states equal, channels
     within 2e-6 of their full scale); timed back to back, as device
     time (CUDA-graph replay) and a launch beside the twin and its bound;
+13b. pll-linear: the PLL's linear tier as one kernel
+    (csrc/pll_linear.cu) held against its twin on the card: three chunks
+    of the AM band cell's graph ([117, 65 536] at multiplier 1; one
+    launch a PLL chunk, the twin never on the card, every row leaving the
+    linear tier), a locked stereo pilot ([1, 52 430] at multiplier 2, the
+    row cut in segments) and 8 RDS pilots ([8, 65 536] at multiplier 3),
+    two chained chunks each: flags equal on every row, out within 1e-5,
+    err and the new state within 1e-5 + 2^-22 max|tau| (or out and err
+    within those limits of a float64 walk of the same loop and nearer it
+    than the twin, where the twin's float32 rounding nears them); timed
+    (device by torch.profiler, back to back, a launch) beside the twin
+    and its bound (20 B a sample at 3.35 TB/s);
 14. bank-mono: the channelizer bank at full width, a 2 s capture at
     16 384 000 S/s (8 WBFM stations with their own tones on channel bins
     over both halves of the span, ~30 dB SNR in a channel) -> ChannelizerBlock
@@ -246,8 +258,8 @@ csrc/ on first use.  Phases, each printed with the elapsed seconds:
     step on the CPU and dryrun_multichip(8), and the examples
     iqfile_converter, iqfile_wbfm_stereo, channel_bank_pod and
     wideband_channelizer_bank against the same modules on the CPU;
-32. the kernels line (K1, K2, K3, the scan, R1, R2, R3, S4, S7, S8) and
-    the final status line.
+32. the kernels line (K1, K2, K3, the scan, the channelizer, the linear
+    tier, R1, R2, R3, S4, S7, S8) and the final status line.
 
 Launch counts are zeroed just before the flagship, the K2 graph run, the
 stereo CLI run, the overlap path run, the rx_am --synchronous run, the
@@ -316,8 +328,8 @@ from luaradio_tpu_torch.core import runtime as runtime_mod
 from luaradio_tpu_torch.core.ingest import Feed
 from luaradio_tpu_torch.core.runtime import Runner
 from luaradio_tpu_torch.ops import (channelizer, cudabuild, pll, pll_ablate,
-                                   pll_overlap, roofline, wbfm, wbfm_proto,
-                                   window)
+                                   pll_linear, pll_overlap, roofline, wbfm,
+                                   wbfm_proto, window)
 from luaradio_tpu_torch.ops.complexutil import (complex_to_wire,
                                                 wire_to_complex)
 from luaradio_tpu_torch.ops.fir import _conv_real
@@ -2325,6 +2337,309 @@ def phase_channelizer(dev, gen, smi):
             "plain_ms": band["plain_ms"], "bound_ms": band["bound_ms"],
             "bound_by": band["bound_by"], "library_ms": band["plain_ms"],
             "shapes": rows_out}
+
+
+#: the pll-linear phase's shapes: the AM band cell's chunk of channel
+#: samples [117, 65 536] (multiplier 1), the stereo graph's pilot chunk
+#: (multiplier 2; phase_stereo's chunk) and a bank of RDS pilots [8,
+#: 65 536] (multiplier 3)
+PLL_LIN_AM = (117, 65536)
+PLL_LIN_PILOT = 52430
+PLL_LIN_RDS = (8, 65536)
+
+
+def _wrap_pi(a):
+    return torch.remainder(a + math.pi, 2 * math.pi) - math.pi
+
+
+def _pll_lin_oracle(x, state, params):
+    """The linear tier of x [R, N] in float64 beyond its float32 inputs:
+    the twin's float32 unwrap (theta, wrapped increments less c1, d0),
+    then the detrended phase summed, the two recurrences walked sample by
+    sample (numpy, all rows at once) and the output phasors composed in
+    float64 from the twin's complex64 constants.  Returns (tau, err, out)
+    as float64 / complex128 arrays [R, N]."""
+    rows, n = x.shape
+    k = pll_linear._constants(*(float(v) for v in params[:4]),
+                              int(params[4])).astype(np.float64)
+    beta, a1m, mult = k[1], k[5], int(params[4])
+    c = k[7:].reshape(5, 2, 2)
+    lam, w, z0c, vp = (c[i, :, 0] + 1j * c[i, :, 1] for i in range(4))
+    p0, m0, f0 = (torch.as_tensor(v, dtype=torch.float32, device=x.device)
+                  .expand(rows) for v in state)
+    th = torch.atan2(x.imag, x.real)
+    inc = pll_linear._wrap(th[:, 1:] - th[:, :-1])
+    c1 = (inc.double().sum(-1) / max(n - 1, 1)).float()
+    d0 = pll_linear._wrap(th[:, 0] - p0)
+    tau = (d0.double()[:, None] + torch.cat(
+        [torch.zeros_like(d0.double())[:, None],
+         torch.cumsum((inc - c1[:, None]).double(), -1)], -1)).cpu().numpy()
+    z = z0c[None, :] * ((f0 - c1).double().cpu().numpy()[:, None])
+    err = np.empty((rows, n))
+    for i in range(n):
+        err[:, i] = tau[:, i] - (vp[None, :] * z).real.sum(-1)
+        z = lam[None, :] * z + w[None, :] * tau[:, i:i + 1]
+    scum = np.concatenate([np.zeros((rows, 1)),
+                           np.cumsum(err, -1)[:, :-1]], -1)
+    xd = x.cpu().numpy().astype(np.complex128)
+    mag = np.abs(xd)
+    xh = np.where(mag > 0, xd / np.maximum(mag, 1e-30), 1.0)
+    base = np.exp(1j * (m0.double() - mult * p0.double()).cpu().numpy())
+    out = base[:, None] * xh ** mult * np.exp(1j * (-mult * err + a1m * scum))
+    return tau, err, out
+
+
+def _pll_lin_hold(label, x, state, params):
+    """One chunk x [R, N] through the kernel (pll_linear_gated, one
+    launch) and its twin (pll_linear_reference and coherence, stock torch)
+    from the same state on the card: the guard and coherence flags equal
+    on every row; each row's out within 1e-5 and its err within 1e-5 +
+    2^-22 max|tau| of the twin's, or within those limits of a float64
+    walk of the same loop (_pll_lin_oracle) and nearer it than the twin
+    (where the twin's own float32 rounding takes it near or past the
+    limits: the loop's acquisition, |tau| of 100 or more); the new state
+    (phases modulo 2 pi) within the err limit of the twin's.  Returns the twin's new state (the next
+    chunk's) and the largest deviations."""
+    rows = x.shape[0]
+    n0 = pll_linear.pll_linear.launches
+    flags, st, out, err = pll_linear.pll_linear_gated(x, state, *params)
+    valid, tst, tout, terr = pll_linear.pll_linear_reference(x, state,
+                                                             *params)
+    coh = pll_linear.coherence(x)
+    torch.cuda.synchronize()
+    if pll_linear.pll_linear.launches != n0 + 1:
+        raise AssertionError(f"pll-linear {label}: "
+                             f"{pll_linear.pll_linear.launches - n0} "
+                             f"launches, not 1")
+    if not torch.equal(flags[0], valid.reshape(-1)) \
+            or not torch.equal(flags[1], coh):
+        raise AssertionError(f"pll-linear {label}: flags {flags.tolist()}, "
+                             f"twin {valid.tolist()} {coh.tolist()}")
+    tau, oerr, oout = _pll_lin_oracle(x, state, params)
+    tol = 1e-5 + 2.0 ** -22 * np.abs(tau).max(-1)
+
+    def gaps(o, e):
+        return (np.abs(o.cpu().numpy() - oout).max(-1),
+                np.abs(e.cpu().numpy() - oerr).max(-1))
+    d_out = (out - tout).abs().amax(-1).cpu().numpy()
+    d_err = (err - terr).abs().amax(-1).cpu().numpy()
+    d_st = torch.stack([_wrap_pi(st[0] - tst[0]).abs(),
+                        _wrap_pi(st[1] - tst[1]).abs(),
+                        (st[2] - tst[2]).abs()]).amax(0).cpu().numpy()
+    k_out, k_err = gaps(out, err)
+    t_out, t_err = gaps(tout, terr)
+    near_twin = (d_out <= 1e-5) & (d_err <= tol)
+    near_loop = (k_out <= 1e-5) & (k_err <= tol) & (k_out <= t_out) \
+        & (k_err <= t_err)
+    ok = (near_twin | near_loop) & (d_st <= tol)
+    worst = {"out": float(d_out.max()), "err": float(d_err.max()),
+             "state": float(d_st.max()),
+             "loop_out": float(k_out.max()), "loop_err": float(k_err.max()),
+             "twin_loop_out": float(t_out.max()),
+             "twin_loop_err": float(t_err.max())}
+    msg = (f"max |kernel - twin| out {worst['out']:.3g}, err "
+           f"{worst['err']:.3g}, state {worst['state']:.3g}; against the "
+           f"float64 loop: kernel out {worst['loop_out']:.3g}, err "
+           f"{worst['loop_err']:.3g}, twin out {worst['twin_loop_out']:.3g}, "
+           f"err {worst['twin_loop_err']:.3g}; limits out 1e-5, err "
+           f"{tol.min():.3g}-{tol.max():.3g} (max|tau| "
+           f"{np.abs(tau).max():.3g}); rows held to the loop, nearer it than "
+           f"the twin: {int((~near_twin).sum())}")
+    if not ok.all():
+        raise AssertionError(f"pll-linear {label}: rows "
+                             f"{np.nonzero(~ok)[0].tolist()} fail: {msg}")
+    log("pll-linear", f"{label}: x {tuple(x.shape)}, valid "
+                      f"{int(flags[0].sum())} of {rows}, coherent "
+                      f"{int(flags[1].sum())}, as the twin; {msg}")
+    return tst, worst
+
+
+def _pll_lin_device_ms(fn, calls: int = 20) -> float:
+    """The kernel's own device time a call: torch.profiler's sum of
+    pll_linear_kernel over ``calls`` calls (a cut row's launch is
+    cooperative, which a CUDA graph may not capture)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if "pll_linear_kernel" in evt.key:
+            us += getattr(evt, "device_time_total",
+                          getattr(evt, "cuda_time_total", 0.0))
+            count += evt.count
+    if count != calls:
+        raise AssertionError(f"pll-linear: the profiler saw {count} kernel "
+                             f"launches of {calls}")
+    return us / 1e3 / calls
+
+
+class _Drop(SinkBlock):
+    """A sink that takes a bank's chunks and keeps nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self.add_type_signature([Input("in", lambda t: True)], [])
+
+    def process(self, x):
+        pass
+
+
+def amband_pll_rows(tmp, dev, chunks=3, seed=2800000028):
+    """The AM band cell's graph (radiobench/configs/amband117_rtlsdr.py:
+    ring -> ChannelizerBlock(117, 16) -> AMSynchronousDemodulator) over a
+    seeded capture of the band, ``chunks`` chunks of [117, 65 536]
+    channel samples: every PLL chunk's input, state and loop constants as
+    it entered the block, with the kernel's launches, the twin's calls on
+    a CUDA tensor (must be 0) and the rows each chunk's tiers solved."""
+    from pathlib import Path
+
+    from radiobench import harness
+    from radiobench.players import amband
+
+    root = Path(__file__).resolve().parent / "radiobench"
+    cfg = json.loads((root / "configs" / "amband117_rtlsdr.json").read_text())
+    mix = json.loads((root / "traffic" / "amband_2p23.json").read_text())
+    graph = harness.load_module(root / "configs" / "amband117_rtlsdr.py")
+    c, m = PLL_LIN_AM
+    n = amband.seamless_length(2 * c * m, cfg)
+    path = os.path.join(tmp, "amband.u8")
+    amband.capture(seed, n, cfg, mix["signal"], dev).cpu().numpy().tofile(
+        path)
+    top = graph.build(cfg, IQFileSource(path, "u8", cfg["rate"],
+                                        repeat_on_eof=True, resident=True),
+                      _Drop())
+    seen, process = [], carrier.PLLBlock.process
+    twin, twin_cuda = pll_linear.pll_linear_reference, [0]
+
+    def recording(self, state, x):
+        seen.append((x.clone(), tuple(torch.as_tensor(v).clone()
+                                      for v in state),
+                     (self._alpha, self._beta, self._freq_min,
+                      self._freq_max, int(self.multiplier))))
+        return process(self, state, x)
+
+    def counted(x, *args):
+        twin_cuda[0] += x.is_cuda
+        return twin(x, *args)
+    n0 = pll_linear.pll_linear.launches
+    slow0 = pll_linear.pll_hybrid.scan_rows + pll_linear.pll_hybrid.k3_rows
+    carrier.PLLBlock.process = recording
+    pll_linear.pll_linear_reference = counted
+    try:
+        Runner(top, device=dev, chunk_size=c * m).run(max_chunks=chunks)
+    finally:
+        carrier.PLLBlock.process = process
+        pll_linear.pll_linear_reference = twin
+    return {"chunks": seen, "launches": pll_linear.pll_linear.launches - n0,
+            "twin_cuda": twin_cuda[0],
+            "slow_rows": pll_linear.pll_hybrid.scan_rows
+            + pll_linear.pll_hybrid.k3_rows - slow0}
+
+
+def _pilot_bank(rows, n, params, mult, gen, dev):
+    """Locked pilots a row: tones at (fmin + fmax) / 2 / mult radians a
+    sample with their own phase, amplitude and noise, and the state that
+    has them locked (phi_l the tone's phase, freq its rate)."""
+    w = float(params[2] + params[3]) / 2
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    ph = torch.rand(rows, 1, generator=gen, dtype=torch.float64,
+                    device=dev) * 6.0 - 3.0
+    amp = 0.05 + 0.1 * torch.rand(rows, 1, generator=gen,
+                                  dtype=torch.float64, device=dev)
+    noise = torch.randn((rows, n), generator=gen, dtype=torch.complex128,
+                        device=dev)
+    x = (amp * torch.exp(1j * (w * t + ph)) + 0.05 * amp * noise
+         ).to(torch.complex64)
+    state = (ph[:, 0].float(), (mult * ph[:, 0]).float(),
+             torch.full((rows,), w, dtype=torch.float32, device=dev))
+    return x, state
+
+
+def phase_pll_linear(tmp, dev, gen, smi):
+    """The PLL's linear tier as one kernel (csrc/pll_linear.cu), each of
+    its shapes held against its twin on the card and timed: the AM band
+    cell's own rows ([117, 65 536], multiplier 1, three chunks of the
+    cell's graph run on the card, where the kernel must launch once a PLL
+    chunk and the twin never run on a CUDA tensor, every row leaving the
+    linear tier as before), the stereo pilot ([1, 52 430], multiplier 2,
+    two chained chunks of a locked pilot; the row cut in segments) and a
+    bank of 8 RDS pilots ([8, 65 536], multiplier 3, two chunks).  Timed:
+    the kernel's device time (torch.profiler), 20 calls back to back, a
+    launch, and the twin (stock torch: pll_linear_reference and
+    coherence) back to back, beside the bound (20 B a sample, x read
+    once and out and err written once, at 3.35 TB/s).  Returns the
+    kernel's entry for the kernels line."""
+    am = amband_pll_rows(tmp, dev)
+    if am["launches"] != len(am["chunks"]) or am["twin_cuda"]:
+        raise AssertionError(f"pll-linear: the AM band graph launched the "
+                             f"kernel {am['launches']} times in "
+                             f"{len(am['chunks'])} PLL chunks, the twin "
+                             f"{am['twin_cuda']} times on the card")
+    log("pll-linear", f"AM band graph: {len(am['chunks'])} PLL chunks, "
+                      f"{am['launches']} kernel launches, the twin 0 times "
+                      f"on the card; {am['slow_rows']} row-chunks left the "
+                      f"linear tier")
+    # (label, [(chunk, state or None: the twin's from the chunk before)],
+    # the loop's constants and multiplier)
+    groups = [("AM band", [(x, st) for x, st, _ in am["chunks"]],
+               am["chunks"][0][2])]
+    for label, (rows, n), params, mult in (
+            ("stereo pilot", (1, PLL_LIN_PILOT), stereo_pll_params(), 2),
+            ("RDS pilots", PLL_LIN_RDS, rds_pll_params(), 3)):
+        x, st = _pilot_bank(rows, 2 * n, params, mult, gen, dev)
+        groups.append((label, [(x[:, :n].contiguous(), st),
+                               (x[:, n:].contiguous(), None)],
+                       params + (mult,)))
+    worst, shapes = {}, []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, chunks, params in groups:
+        carried = None
+        for i, (xc, st) in enumerate(chunks):
+            carried, w = _pll_lin_hold(f"{label}, chunk {i}", xc,
+                                       st if st is not None else carried,
+                                       params)
+            worst = {k: max(worst.get(k, 0.0), v) for k, v in w.items()}
+        xc, st0 = chunks[0]
+        rows, n = xc.shape
+        run = lambda: pll_linear.pll_linear_gated(  # noqa: E731
+            xc, st0, *params)
+
+        def twin():
+            pll_linear.pll_linear_reference(xc, st0, *params)
+            pll_linear.coherence(xc)
+        p = pll_linear.plan(rows, n, sms)
+        dev_ms = _pll_lin_device_ms(run)
+        ms = back_to_back_ms(run)
+        launch_ms = median_ms(run)
+        plain_ms = back_to_back_ms(twin)
+        nbytes = 20.0 * rows * n
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        log("pll-linear", f"{label} [{rows} x {n}] multiplier {params[-1]}, "
+                          f"plan {tuple(p)}: device {dev_ms:.4f} ms "
+                          f"(torch.profiler, 20 calls), {ms:.4f} ms (20 back "
+                          f"to back, median of 5), {launch_ms:.4f} ms a "
+                          f"launch (median of {REPS}); twin (stock torch) "
+                          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                          f"({nbytes / 1e6:.1f} MB at 3.35 TB/s): device "
+                          f"{dev_ms / bound_ms:.2f}x it; {smi}")
+        shapes.append({"shape": [rows, n, params[-1]], "device_ms": dev_ms,
+                       "ms": ms, "launch_ms": launch_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "plan": p._asdict()})
+    band = shapes[0]
+    return {"name": "pll_linear", "route": "cuda",
+            "source": "luaradio_tpu_torch/csrc/pll_linear.cu",
+            "replaces": "none (the JAX pll_linear reaches no pallas_call; "
+                        "the port's stock-torch body)",
+            "launches": am["launches"],
+            "max_abs_err": max(worst["out"], worst["err"]), "gaps": worst,
+            "ms": band["ms"], "plain_ms": band["plain_ms"],
+            "bound_ms": band["bound_ms"], "bound_by": "bytes",
+            "library_ms": band["plain_ms"], "shapes": shapes}
 
 
 def phase_bank_mono(tmp, dev, profile=None):
@@ -5440,6 +5755,8 @@ def main(argv):
     del rds
     pfb = phase_channelizer(dev, gen, smi)
     with tempfile.TemporaryDirectory() as tmp:
+        pll_lin = phase_pll_linear(tmp, dev, gen, smi)
+    with tempfile.TemporaryDirectory() as tmp:
         mono = phase_bank_mono(tmp, dev, profile)
     # the kernel's launches on the bank-mono path, one a chunk
     pfb["launches"] = mono.pop("pfb_launches")
@@ -5531,7 +5848,7 @@ def main(argv):
     if ChannelizerBlock.stock_chunks:
         raise AssertionError(f"{ChannelizerBlock.stock_chunks} channelizer "
                              f"chunks ran on the stock path")
-    entries = [k1, k2, k3, overlap, pfb] + rfl + probes
+    entries = [k1, k2, k3, overlap, pfb, pll_lin] + rfl + probes
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(

@@ -63,7 +63,9 @@ the channelizer's kernel, one a chunk on a card, and
 ``ChannelizerBlock.stock_chunks`` the chunks a card ran on the stock
 path instead (a shape the kernel does not take);
 ``pll_hybrid.scan_rows`` and ``pll_hybrid.k3_rows`` (ops/pll_linear.py)
-the row-chunks the PLL's overlap scan and K3 solved.  ``chunk`` is the
+the row-chunks the PLL's overlap scan and K3 solved, and
+``pll_linear.launches`` the launches of the PLL's linear-tier kernel, one
+a PLL chunk on a card (0 on the CPU).  ``chunk`` is the
 chunk's sequence number from 0, assigned by the reader in read order; a
 span opened without one carries its parent's.  To ask why chunk k was
 late, join its records on ``chunk == k``: its read and copy, the pump's

@@ -27,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("wbfm", "pll", "pll_overlap", "roofline", "window", "pll_ablate",
-           "wbfm_proto", "channelizer")
+           "wbfm_proto", "channelizer", "pll_linear")
 #: measurement builds: name -> (source, extra nvcc flags).  wbfm_parts
 #: holds K1's discriminator and FIR halves alone (chip_smoke.py,
 #: scratch/wbfm_ab.py); roofline_sweep every instance of the copies' ring

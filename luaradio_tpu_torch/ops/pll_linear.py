@@ -17,6 +17,15 @@ wrapped input phase times small rotations, so no large phase is ever held
 in float32.  The guards are checked on the solution afterwards: max|err|
 within 15/16 pi, the frequency inside [fmin, fmax], |tau| < 512.
 
+:func:`pll_linear` solves this tier.  For CUDA tensors it is one launch of
+a hand-written kernel (csrc/pll_linear.cu) over the whole [C, N] chunk,
+which also returns :func:`pll_hybrid`'s coherence gate from the same read
+of x; for CPU tensors it takes the plain twin
+(:func:`pll_linear_reference`, stock torch); anything else raises.
+``pll_linear.launches`` counts kernel launches.  The kernel's grid
+follows the shape (:func:`plan`): a block a row, or a row cut into
+segments where the rows are few.
+
 :func:`pll_hybrid` runs this tier on every chunk and takes the exact
 sequential kernel (K3, ops/pll.py) — or, where it plans, the
 overlap-and-discard tier — only for the chunks whose guards fail.  The
@@ -32,11 +41,22 @@ ask for it use it; PLLBlock takes pll_hybrid).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from luaradio_tpu_torch.core import trace
+from luaradio_tpu_torch.ops import cudabuild
 from luaradio_tpu_torch.ops.scan import linrec_first_order
+
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the kernel's tile (csrc/pll_linear.cu kTile: 512 threads x 8 samples);
+#: a segment of a cut row is a whole number of tiles
+TILE = 4096
 
 _TWO_PI = float(np.float32(2 * np.pi))
 
@@ -64,8 +84,10 @@ def _eigen_setup(alpha, beta):
     return lam, vmat, np.linalg.inv(vmat)
 
 
-def pll_linear(x, state, alpha, beta, fmin, fmax, mult: int):
-    """Linear-scan PLL along the last axis of x complex64 [..., N] with
+def pll_linear_reference(x, state, alpha, beta, fmin, fmax, mult: int):
+    """Plain twin of :func:`pll_linear` in stock torch ops.
+
+    Linear-scan PLL along the last axis of x complex64 [..., N] with
     state (phi_l, phi_m, freq), each a scalar or [...] (one per row).
 
     Returns (valid, new_state, out [..., N] complex64, err [..., N]
@@ -141,6 +163,169 @@ def pll_linear(x, state, alpha, beta, fmin, fmax, mult: int):
     return valid, new_state, out.to(c64), err
 
 
+def coherence(xb: torch.Tensor) -> torch.Tensor:
+    """:func:`pll_hybrid`'s coherence gate, bool [C], of x [C, N]: on
+    carrier-free noise the overlap scan's warm-up never converges, and the
+    lag-1 autocorrelation says whether there is a carrier to track."""
+    c = (xb[:, 1:] * xb[:, :-1].conj()).sum(-1)
+    p = (xb.real ** 2 + xb.imag ** 2).sum(-1)
+    return c.abs() > 0.05 * torch.clamp(p, min=1e-30)
+
+
+# -- the kernel's plan --------------------------------------------------------
+
+class Plan(NamedTuple):
+    """One launch: each row in ``segs`` segments of ``seg_len`` samples
+    (the last may be shorter), one block a segment, ``grid`` blocks."""
+    segs: int
+    seg_len: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=64)
+def plan(rows: int, n: int, sms: int, tile: int = TILE) -> Plan:
+    """The launch for ``rows`` rows of ``n`` samples on a card of ``sms``
+    SMs: a block a row where the rows fill half the card or more (or a
+    row is one tile); else each row cut into segments of whole tiles, as
+    many as the card holds one block an SM, so that a cut row's blocks are
+    all resident for the kernel's grid barrier.  Cached: a graph launches
+    one shape chunk after chunk."""
+    if rows < 1 or n < 1:
+        raise ValueError(f"pll_linear: no work in [{rows}, {n}]")
+    tiles = -(-n // tile)
+    segs = 1 if 2 * rows > sms else max(1, min(tiles, sms // rows))
+    seg_len = -(-tiles // segs) * tile
+    segs = -(-n // seg_len)
+    return Plan(segs, seg_len, rows * segs)
+
+
+@functools.lru_cache(maxsize=64)
+def _constants(alpha, beta, fmin, fmax, mult: int) -> np.ndarray:
+    """The kernel's float32 constants, as :func:`pll_linear_reference`
+    rounds them: alpha, beta, fmin, fmax, the err margin, alpha (1 -
+    mult), alpha - 1, then (re, im) of the eigenvalues, the input and
+    initial-state weights and the two rows of the eigenvector matrix."""
+    alpha = np.float32(alpha)
+    beta = np.float32(beta)
+    lam, vmat, vinv = _eigen_setup(alpha, beta)
+    w_in = vinv @ np.array([alpha + beta, beta], np.complex128)
+    pairs = np.array([lam, w_in, vinv[:, 1], vmat[0], vmat[1]]
+                     ).astype(np.complex64)
+    head = [alpha, beta, np.float32(fmin), np.float32(fmax),
+            np.float32(np.pi * (15.0 / 16.0)), alpha * np.float32(1 - mult),
+            alpha - np.float32(1.0)]
+    return np.concatenate([np.array(head, np.float32),
+                           pairs.view(np.float32).reshape(-1)])
+
+
+def _lib():
+    lib = cudabuild.load("pll_linear")
+    if not lib.lr_pll_linear.argtypes:
+        lib.lr_pll_linear.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _VP,
+                                      _LL, _VP, _LL, _VP, _VP, _LL, _LL, _I,
+                                      _I, _I, _VP, _I, _VP]
+        lib.lr_pll_linear.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: the grid barrier's counters, one pair a (card, stream): zero when made,
+#: and each launch leaves them so
+_barriers: dict = {}
+
+
+def _leaf(v, lead, rows, dev):
+    """A state leaf as (float32 tensor on ``dev``, stride of its rows): a
+    scalar shared by every row has stride 0."""
+    t = torch.as_tensor(v, dtype=torch.float32, device=dev)
+    if t.dim() == 0:
+        return t, 0
+    t = t.expand(lead).reshape(rows)
+    return t, t.stride(0) if rows > 1 else 0
+
+
+def _launch(x, state, alpha, beta, fmin, fmax, mult: int):
+    """One launch over x complex64 [*lead, N] on a card: (flags bool [2,
+    rows] (the guards, the coherence gate), state float32 [3, rows], out,
+    err)."""
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    rows = math.prod(lead)
+    dev = x.device
+    if x.dtype != torch.complex64 or n < 1 or rows < 1:
+        raise ValueError(f"pll_linear: want complex64 [*lead, N >= 1], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if not float(mult).is_integer() or mult < 1:
+        raise ValueError(f"pll_linear: want a positive integer multiplier, "
+                         f"got {mult}")
+    x = x.contiguous()
+    p = plan(rows, n, _sms(dev.index))
+    leaves = [_leaf(v, lead, rows, dev) for v in state]
+    out = torch.empty(x.shape, dtype=torch.complex64, device=dev)
+    err = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    st = torch.empty((3, rows), dtype=torch.float32, device=dev)
+    flags = torch.empty((2, rows), dtype=torch.bool, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    part = bar = None
+    if p.segs > 1:
+        part = torch.empty(2 * p.grid * 8, dtype=torch.float64, device=dev)
+        bar = _barriers.get((dev.index, stream))
+        if bar is None:
+            bar = _barriers[(dev.index, stream)] = torch.zeros(
+                2, dtype=torch.int64, device=dev)
+    k = _constants(float(alpha), float(beta), float(fmin), float(fmax),
+                   int(mult))
+    lib = _lib()
+    code = lib.lr_pll_linear(
+        x.data_ptr(), out.data_ptr(), err.data_ptr(), st.data_ptr(),
+        flags.data_ptr(), leaves[0][0].data_ptr(), leaves[0][1],
+        leaves[1][0].data_ptr(), leaves[1][1], leaves[2][0].data_ptr(),
+        leaves[2][1], None if part is None else part.data_ptr(),
+        None if bar is None else bar.data_ptr(), n, p.seg_len, rows, p.segs,
+        int(mult), k.ctypes.data, dev.index, stream)
+    cudabuild.check(lib, code, "pll_linear")
+    pll_linear.launches += 1
+    return flags, st, out, err
+
+
+def pll_linear_gated(xb, state, alpha, beta, fmin, fmax, mult: int):
+    """The linear tier of a bank x complex64 [C, N] with state leaves
+    scalars or [C], and the coherence gate: (flags bool [2, C] (row 0 the
+    guards, :func:`pll_linear`'s ``valid``; row 1 :func:`coherence`),
+    new_state, out, err).  One kernel launch on a card; the twin and
+    :func:`coherence` on the CPU."""
+    if xb.device.type == "cpu":
+        valid, st, out, err = pll_linear_reference(xb, state, alpha, beta,
+                                                   fmin, fmax, mult)
+        return torch.stack([valid, coherence(xb)]), st, out, err
+    if xb.device.type != "cuda":
+        raise ValueError(f"pll_linear: unsupported device {xb.device}")
+    flags, st, out, err = _launch(xb, state, alpha, beta, fmin, fmax, mult)
+    return flags, tuple(st), out, err
+
+
+def pll_linear(x, state, alpha, beta, fmin, fmax, mult: int):
+    """Linear-scan PLL along the last axis of x complex64 [..., N] with
+    state (phi_l, phi_m, freq), each a scalar or [...] (one per row):
+    (valid, new_state, out, err) as :func:`pll_linear_reference` gives
+    them.  A CUDA tensor launches the kernel, a CPU tensor takes the
+    twin, any other device raises."""
+    if x.device.type == "cpu":
+        return pll_linear_reference(x, state, alpha, beta, fmin, fmax, mult)
+    if x.device.type != "cuda":
+        raise ValueError(f"pll_linear: unsupported device {x.device}")
+    lead = tuple(x.shape[:-1])
+    flags, st, out, err = _launch(x, state, alpha, beta, fmin, fmax, mult)
+    return (flags[0].reshape(lead), tuple(v.reshape(lead) for v in st), out,
+            err)
+
+
+pll_linear.launches = 0
+
+
 def _vco(x: torch.Tensor, err: torch.Tensor,
          out: torch.Tensor) -> torch.Tensor:
     """The VCO the loop measured ``err`` against, x / |x| exp(-j err)
@@ -175,11 +360,13 @@ def pll_hybrid(x, state, alpha, beta, fmin, fmax, mult: int, sequential,
        those rows (x [R, N], state leaves [R]; [N] and scalars for a
        single stream).
 
-    The linear tier always runs; each later tier runs only on the rows
-    the one before it left, chosen on the host from one read of the
-    linear guards and the coherence gates together and, if the overlap
-    tier ran, one read of its flags: at most two reads a chunk whatever C
-    is (``pll_hybrid.host_reads`` counts them).  Rows are gathered with
+    The linear tier always runs (:func:`pll_linear_gated`: one kernel
+    launch on a card, which also computes the coherence gates); each
+    later tier runs only on the rows the one before it left, chosen on
+    the host from one read of the linear guards and the coherence gates
+    together and, if the overlap tier ran, one read of its flags: at
+    most two reads a chunk whatever C is (``pll_hybrid.host_reads``
+    counts them).  Rows are gathered with
     ``index_select`` and scattered back.  ``allow_overlap=False``
     (PLLBlock(exact=True)) skips tier 2.  ``row_tiers``, when given, is
     filled with the tier (1, 2 or 3) each row took;
@@ -205,21 +392,13 @@ def pll_hybrid(x, state, alpha, beta, fmin, fmax, mult: int, sequential,
     xb = x[None] if one else x
     rows = xb.shape[0]
     dev = x.device
-    valid, st, out, err = pll_linear(xb, state, alpha, beta, fmin, fmax,
-                                     mult)
+    flags, st, out, err = pll_linear_gated(xb, state, alpha, beta, fmin,
+                                           fmax, mult)
     plan = plan_overlap(x.shape[-1], float(alpha)) if allow_overlap else None
-    if plan is not None:
-        # coherence gate: on carrier-free noise the warm-up never
-        # converges, so the batched scan would be wasted ahead of the
-        # sequential kernel; the lag-1 autocorrelation says whether there
-        # is a carrier to track.  Read with the guards.
-        c = (xb[:, 1:] * xb[:, :-1].conj()).sum(-1)
-        p = (xb.real ** 2 + xb.imag ** 2).sum(-1)
-        coherent = c.abs() > 0.05 * torch.clamp(p, min=1e-30)
-        flags = _host(torch.stack([valid, coherent]))
-        lin, gate = flags[:rows], flags[rows:]
-    else:
-        lin, gate = _host(valid), [False] * rows
+    # the guards and the coherence gate (:func:`coherence`), in one read
+    read = _host(flags)
+    lin = read[:rows]
+    gate = read[rows:] if plan is not None else [False] * rows
     todo = [r for r in range(rows) if not lin[r]]
     took = [0] * rows
     taken(1, [r for r in range(rows) if lin[r]])
@@ -427,5 +606,6 @@ pll_newton_scan.host_reads = 0
 pll_newton_scan.segments = [0, 0]
 
 
-__all__ = ["pll_linear", "pll_hybrid", "pll_newton_segment",
+__all__ = ["pll_linear", "pll_linear_reference", "pll_linear_gated",
+           "coherence", "plan", "Plan", "pll_hybrid", "pll_newton_segment",
            "pll_newton_scan"]
