@@ -1,9 +1,10 @@
 """Traffic: a mix (``traffic/<mix>.json``, data only) is played by the
-player its ``kind`` names, ``players/<kind>.py`` (class ``Player``),
-which makes the mix's inputs from the seed and the mix's parameters and
-gives the graph its source.  A player of a live radio plays the capture
-through a paced fake of the radio's library, ``fakes/<sdr>.py``, the
-``sdr`` the mix names.
+player its ``kind`` names, ``players/<kind>.py`` (class ``Player``, on
+``Capture``) beside the cell's other files, which makes the mix's inputs
+from the seed and the mix's parameters and gives the graph its source
+(radiobench/harness.py ``make_player``).  A player of a live
+radio plays the capture through a paced fake of the radio's library,
+``fakes/<sdr>.py``, the ``sdr`` the mix names.
 
 Captures are made on ``device`` (radiobench/synth.py) and written under
 ``tmpdir``.
@@ -63,12 +64,6 @@ class Capture:
 
     def close(self):
         pass
-
-
-def make(cfg: dict, mix: dict, seed: int, device, tmpdir) -> Capture:
-    """The player of ``mix``'s kind, its inputs made."""
-    mod = importlib.import_module(f"radiobench.players.{mix['kind']}")
-    return mod.Player(cfg, mix, seed, device, tmpdir)
 
 
 def fake_library(sdr: str):

@@ -8,7 +8,15 @@ the graph's code ``configs/<config>.py``, the reference
 played by ``players/<kind>.py``); ``workloads/<cell>.json`` holds the
 cell's limits; each metric is read by ``metrics/<metric>.py``, and a
 metric that reads counters of the program names them there
-(``COUNTERS``).
+(``COUNTERS``).  The cells of BENCHMARK.json have their files under
+radiobench/; those of another benchmark file (``benchmark(path)``, a
+test's own) beside it.  The metric readers are radiobench/metrics/'s.
+
+The graph's output is audio unless the configuration's file says
+``"output": "messages"``: then the sink is ``window.MessageSink``, the
+window keeps every chunk's messages beside a sample of the soft samples'
+chunks, and ``judge.messages`` and ``judge.gaps`` hold them against the
+reference's ``messages`` and ``soft`` (radiobench/README.md).
 """
 
 from __future__ import annotations
@@ -42,8 +50,12 @@ def load_module(path: Path):
     return mod
 
 
-def benchmark() -> dict:
-    return load_json(REPO / "BENCHMARK.json")
+def benchmark(path: Path | None = None) -> dict:
+    """BENCHMARK.json, or the benchmark file at ``path``; its cells'
+    files lie under ``root`` (radiobench/, or beside ``path``)."""
+    if path is None:
+        return {**load_json(REPO / "BENCHMARK.json"), "root": ROOT}
+    return {**load_json(path), "root": Path(path).resolve().parent}
 
 
 def cell_files(bench: dict, name: str) -> dict:
@@ -52,13 +64,53 @@ def cell_files(bench: dict, name: str) -> dict:
     if not entries:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     w = entries[0]
-    cfg = load_json(ROOT / "configs" / f"{w['config']}.json")
-    return {"entry": w, "cfg": cfg,
-            "mix": load_json(ROOT / "traffic" / f"{w['traffic']}.json"),
-            "limits": load_json(ROOT / "workloads" / f"{name}.json")[
+    root = Path(bench.get("root", ROOT))
+    cfg = load_json(root / "configs" / f"{w['config']}.json")
+    mix = load_json(root / "traffic" / f"{w['traffic']}.json")
+    return {"entry": w, "cfg": cfg, "mix": mix,
+            "limits": load_json(root / "workloads" / f"{name}.json")[
                 "limits"],
-            "graph": ROOT / "configs" / f"{w['config']}.py",
-            "reference": ROOT / "reference" / f"{w['config']}.py"}
+            "graph": root / "configs" / f"{w['config']}.py",
+            "reference": root / "reference" / f"{w['config']}.py",
+            "player": root / "players" / f"{mix['kind']}.py"}
+
+
+def make_player(files: dict, mix: dict, seed: int, device, tmpdir):
+    """The cell's player (``players/<kind>.py``), its inputs made."""
+    return load_module(files["player"]).Player(files["cfg"], mix, seed,
+                                               device, tmpdir)
+
+
+#: the checks that count what was compared, each held from below (value
+#: >= limit; every other check holds its reading from above): at least one
+#: window chunk, and at least one expected message in every row
+AT_LEAST = {"compared_chunks": 1, "compared_messages": 1}
+
+
+def verdict(checks: dict) -> bool:
+    """Whether every check holds its limit."""
+    return all(c["value"] >= c["limit"] if k in AT_LEAST
+               else c["value"] <= c["limit"] for k, c in checks.items())
+
+
+def judge_messages(kept_messages: dict, kept_soft: dict, ref_mod, raw,
+                   cfg: dict, chunk_in: int, period: int
+                   ) -> tuple[dict, dict]:
+    """A message cell's numbers: ``kept_messages`` (every window chunk's
+    messages) against the reference's ``messages`` by ``judge.messages``,
+    and ``kept_soft`` (a sample of the soft samples' chunks) against its
+    ``soft`` by ``judge.gaps``, as ``soft_gap``; ``period`` the input
+    samples a loop of the capture."""
+    from radiobench import judge
+    d = ref_mod.plan(cfg)
+    got, extra = judge.messages(kept_messages, ref_mod.messages(raw, cfg),
+                                chunk_in, d["lag"], period)
+    soft, _ = judge.gaps(kept_soft, ref_mod.soft(raw, cfg),
+                         chunk_in // d["soft_ds"])
+    got = {"msg_missed": got["msg_missed"], "msg_wrong": got["msg_wrong"],
+           "soft_gap": soft["audio_gap"],
+           "compared_messages": got["compared_messages"]}
+    return got, extra
 
 
 def cell_metrics(bench: dict, name: str, section: str) -> list:
@@ -129,12 +181,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
              ) -> tuple[dict, dict]:
     """(the result line, the run's record for the line before it)."""
     from luaradio_tpu_torch.core.runtime import Runner
-    from radiobench import devinfo, drive, judge, profile, window as win
+    from radiobench import devinfo, judge, profile, window as win
 
     t_start = time.perf_counter() if t_start is None else t_start
     bench = bench or benchmark()
     files = cell_files(bench, name)
     cfg, mix = files["cfg"], dict(files["mix"])
+    messages = cfg.get("output", "audio") == "messages"
     mix.update(overrides or {})
     dev = torch.device(device)
     if trace:
@@ -157,7 +210,6 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     tmp = tempfile.TemporaryDirectory(prefix="radiobench-")
     graph = load_module(files["graph"])
     build = graph.build
-    channels = 1 if cfg["mono"] else 2
     chunk = mix.get("chunk_size")
     readers = {m["name"]: load_module(ROOT / "metrics" / f"{m['name']}.py")
                for sec in ("end_to_end", "per_layer")
@@ -166,17 +218,18 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     state = None
     sl = profile.Slice(tmp.name) if trace and dev.type == "cuda" else None
     error = None
-    drv = runner = w = chunk_in = t_warm = None
+    drv = runner = w = sink = chunk_in = t_warm = None
     try:
         t = time.perf_counter()
-        drv = drive.make(cfg, mix, seed, dev, tmp.name)
+        drv = make_player(files, mix, seed, dev, tmp.name)
         rec["t_inputs_s"] = time.perf_counter() - t
         t_warm = time.perf_counter()
         if hasattr(drv, "warm_source"):
             # an open loop cannot wait for set-up: the same graph warms
             # its shapes on the capture first
             w0 = win.Window(0, 1 << 60, 0, seed)
-            Runner(build(cfg, drv.warm_source(), win.BenchSink(channels, w0)),
+            Runner(build(cfg, drv.warm_source(),
+                         win.sink_for(cfg, drv.rows, w0)),
                    device=dev, chunk_size=chunk).run(
                        max_chunks=mix["prewarm_chunks"])
 
@@ -198,7 +251,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
                        on_open=on_open, on_slice=on_slice,
                        on_close=on_close)
         src = drv.source()
-        top = build(cfg, src, win.BenchSink(channels, w))
+        sink = win.sink_for(cfg, drv.rows, w)
+        top = build(cfg, src, sink)
         runner = Runner(top, device=dev, chunk_size=chunk)
         marks.runner = runner
         chunk_in = runner.graph.out_chunk[id(src)]
@@ -211,6 +265,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
             runner.stop(timeout=120)
         except Exception as exc:  # noqa: BLE001 — reported, judged false
             error = exc
+        if messages and error is None and (
+                sink.calls != sink.rows * runner.chunks_processed
+                or sink.soft.calls != runner.chunks_processed):
+            error = RuntimeError(
+                f"the message sink took {sink.calls} calls and its soft "
+                f"tap {sink.soft.calls} over {runner.chunks_processed} "
+                f"chunks of {sink.rows} rows: not whole rows a chunk, or "
+                f"not one soft chunk a chunk")
         if hasattr(graph, "program_state"):
             state = graph.program_state(runner)
         if not w.closed.is_set() and error is None:
@@ -299,7 +361,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     t = time.perf_counter()
     limits = files["limits"]
     checks = {}
-    if comparable and error is None:
+    if comparable and error is None and messages:
+        got, extra = judge_messages(w.messages, comparable, ref_mod,
+                                    drv.raw(dev), cfg, chunk_in, drv.length)
+        rec.update(extra)
+        checks = {k: {"value": v,
+                      "limit": AT_LEAST[k] if k in AT_LEAST else limits[k]}
+                  for k, v in got.items()}
+    elif comparable and error is None:
         ref = ref_mod.audio(drv.raw(dev), cfg, quadrature=not cfg["mono"])
         d = ref_mod.plan(cfg)
         got, extra = judge.gaps(comparable, ref,
@@ -308,12 +377,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
         rec.update(extra)
         del ref
         checks = {k: {"value": v, "limit": limits[k]} for k, v in got.items()}
-    checks["compared_chunks"] = {"value": len(comparable), "limit": 1}
+    checks["compared_chunks"] = {"value": len(comparable),
+                                 "limit": AT_LEAST["compared_chunks"]}
     rec["t_reference_s"] = time.perf_counter() - t
     tmp.cleanup()
-    correct = (error is None and len(comparable) >= 1 and all(
-        c["value"] <= c["limit"] for k, c in checks.items()
-        if k != "compared_chunks"))
+    correct = error is None and verdict(checks)
 
     # -- metrics ---------------------------------------------------------
     section = "per_layer" if trace else "end_to_end"
@@ -338,6 +406,6 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     return result, rec
 
 
-__all__ = ["run_cell", "benchmark", "cell_files", "cell_metrics",
-           "counter_paths", "read_counter", "forbidden_modules",
-           "load_json", "load_module"]
+__all__ = ["run_cell", "benchmark", "cell_files", "make_player", "AT_LEAST",
+           "verdict", "judge_messages", "cell_metrics", "counter_paths",
+           "read_counter", "forbidden_modules", "load_json", "load_module"]

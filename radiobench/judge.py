@@ -29,6 +29,50 @@ period, over all channels):
   cannot be held to the float64 one's, only to its own loop's state.
   Swapped or inverted channels read pi here, a carrier a quarter cycle
   off pi / 2, a carrier that wanders as far as its wander.
+
+Decoded messages (``messages``; a configuration whose file says
+``"output": "messages"``) are held against the reference's messages in
+order, row by row.  The reference decodes each looped capture (P input
+samples) twice from zero state and gives each message's ``at``, the
+input sample at which its last bit enters the receiver; over the window
+its messages unroll as audio does in ``_index``: the first period as
+decoded, the second repeated.  A message is expected where its ``at``
+lies from the first window chunk's start to the last one's end less
+``lag`` (the reference's ``plan(cfg)["lag"]``: the most input samples
+after ``at`` at which a correct receiver may still emit it).  A message
+emitted in chunk c matches the next reference message in order whose
+text is equal and whose ``at`` satisfies (c + 1) chunk_in > at (its last
+bit has entered) and c chunk_in <= at + lag (it is not late); one that
+matches a reference message outside the expected span, at the window's
+edges, is neither expected nor wrong.  The numbers, the first two the
+largest over the rows:
+
+* ``msg_missed``: expected messages left unmatched over the expected
+  count (1.0 for a silent row);
+* ``msg_wrong``: emitted messages that match no reference message at
+  their place (altered, repeated, early, late or in another row's place)
+  over the emitted count;
+* ``compared_messages``: the fewest expected messages of any row, a count
+  held from below at 1, as ``compared_chunks`` is (radiobench/harness.py
+  ``AT_LEAST``), so that no row goes unjudged.
+
+The first two have the limit 0.  The generator of a message cell keeps
+every bit decision's eye open (its SNR is part of the traffic mix), so
+the float64 reference and a correct float32 program slice the same bits
+and decode the same messages: any difference is a fault, not rounding.
+For the same reason the messages cannot tell a receiver one precision
+down from a sound one, so a message cell is also held by the samples its
+slicer decides on: the configuration's graph taps them (the clock
+recovery's input, ``window.MessageSink.soft``), and ``gaps`` holds a
+sample of their chunks against the reference's ``soft``, as mono audio,
+under the name
+
+* ``soft_gap``: the widest gap over every compared sample, as a fraction
+  of the row's full scale.
+
+Its limit, like ``audio_gap``'s, lies between the largest that sound
+runs read and the smallest that the control (the reference one
+precision down, radiobench/control.py) reads.
 """
 
 from __future__ import annotations
@@ -107,4 +151,69 @@ def gaps(kept: dict, ref: torch.Tensor, per_chunk: int,
     return out, extra
 
 
-__all__ = ["gaps"]
+def _unroll(ref_row: list, period: int, lo: int, hi: int) -> list:
+    """The reference's (at, text) of one row with lo <= at < hi in the
+    looped stream, in order: its first period as decoded, its second
+    repeated every ``period`` input samples after it."""
+    out = [(at, t) for at, t in ref_row if at < period and lo <= at < hi]
+    second = [(at, t) for at, t in ref_row if period <= at < 2 * period]
+    for k in range(max(0, (lo - 2 * period) // period),
+                   max(0, (hi - period) // period) + 1):
+        out += [(at + k * period, t) for at, t in second
+                if lo <= at + k * period < hi]
+    return sorted(out, key=lambda m: m[0])
+
+
+def messages(kept: dict, ref: list, chunk_in: int, lag: int,
+             period: int) -> tuple[dict, dict]:
+    """({number: reading}, {counts for the run's record}) over the
+    window's messages ``kept`` {chunk: [(chunk, row, text), ...]} (every
+    window chunk, each chunk's records in row order) against ``ref``, a
+    list a row of (at, text) over two periods of ``period`` input samples
+    (module docstring)."""
+    first, last = min(kept), max(kept)
+    lo, hi = first * chunk_in, (last + 1) * chunk_in
+    emitted = [[] for _ in ref]
+    stray = 0                       # records of a row the reference lacks
+    for c in sorted(kept):
+        for cc, row, text in kept[c]:
+            if 0 <= row < len(ref):
+                emitted[row].append((cc, text))
+            else:
+                stray += 1
+    missed = wrong = edge = 0
+    n_exp = []
+    miss_share, wrong_share = 0.0, 1.0 if stray else 0.0
+    for row, ref_row in enumerate(ref):
+        cands = _unroll(ref_row, period, lo - lag, hi)
+        matched = set()
+        p = 0
+        for c, text in emitted[row]:
+            for j in range(p, len(cands)):
+                at, t = cands[j]
+                if at >= (c + 1) * chunk_in:
+                    break
+                if t == text and c * chunk_in <= at + lag:
+                    matched.add(j)
+                    p = j + 1
+                    break
+        expected = {j for j, (at, _) in enumerate(cands)
+                    if lo <= at < hi - lag}
+        row_missed = len(expected - matched)
+        row_wrong = len(emitted[row]) - len(matched)
+        missed += row_missed
+        wrong += row_wrong
+        edge += len(matched - expected)
+        n_exp.append(len(expected))
+        if expected:
+            miss_share = max(miss_share, row_missed / len(expected))
+        if emitted[row]:
+            wrong_share = max(wrong_share, row_wrong / len(emitted[row]))
+    return ({"msg_missed": miss_share, "msg_wrong": wrong_share,
+             "compared_messages": min(n_exp, default=0)},
+            {"messages_emitted": sum(map(len, emitted)) + stray,
+             "messages_missed": missed, "messages_wrong": wrong + stray,
+             "messages_edge": edge, "messages_expected": sum(n_exp)})
+
+
+__all__ = ["gaps", "messages"]

@@ -8,8 +8,9 @@ from radiobench import stats
 
 
 def input_msps(ctx) -> float | None:
-    """Complex input samples (every row of a bank) whose audio reached the
-    sink inside the window, in millions a second of the window."""
+    """Complex input samples (every row of a bank) whose audio or messages
+    reached the sink inside the window, in millions a second of the
+    window."""
     if not ctx["window_chunks"]:
         return None
     return ctx["input_samples"] / ctx["seconds"] / 1e6

@@ -75,13 +75,20 @@ def test_cell_resolves_by_name(cell):
 
 def _ctx(stereo):
     """A run's context as radiobench/harness.py hands it to the readers,
-    with every field a reader may read filled."""
-    spans = {"sources.wait": {"count": 40, "total_s": 0.5},
-             "segment[0].dispatch": {"count": 40, "total_s": 0.2},
-             "host[0].process": {"count": 40, "total_s": 0.1}}
+    with every field a reader may read filled: every span and counter the
+    readers name, and a configuration with a channelizer."""
+    spans = {k: {"count": 40, "total_s": t} for k, t in (
+        ("sources.wait", 0.5), ("sources.h2d", 0.01),
+        ("segment[0].dispatch", 0.2), ("host[0].process", 0.1),
+        ("chunk.hold", 1.2), ("host.d2h_wait", 0.004),
+        ("pll.host_read", 0.01), ("pll.device", 0.16),
+        ("channelizer.device", 0.004))}
     part = {"seconds": 2.0, "spans": spans, "h2d": 40,
-            "counters": {"pll_phase": 3, "pll_overlap_discard": 1}}
-    return {"cell": "-", "cfg": {"mono": not stereo}, "seconds": 20.0,
+            "counters": {"pll_phase": 3, "pll_overlap_discard": 1,
+                         "scan_rows": 4680, "k3_rows": 0}}
+    cfg = json.loads((ROOT / "configs" / "fmband100_hackrf.json"
+                      ).read_text())
+    return {"cell": "-", "cfg": dict(cfg, mono=not stereo), "seconds": 20.0,
             "rows": 1, "chunk_in": 262200, "window_chunks": 400,
             "input_samples": 400 * 262200, "latencies_ms": [50.0] * 100,
             "setup_s": 12.5, "window": part, "traced": part,
@@ -136,8 +143,14 @@ def _leaves(top):
     return desc, conns
 
 
-@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+@pytest.mark.parametrize("config", [
+    c["name"] for c in BENCH["configs"]
+    if "tuner_bandwidth" in json.loads((REPO / c["file"]).read_text())])
 def test_config_builds_what_rx_wbfm_builds(config, tmp_path, monkeypatch):
+    """A configuration with rx_wbfm's tuner builds rx_wbfm's graph.  The
+    band configurations put a channelizer in the tuner's place, a graph
+    rx_wbfm does not build: tests/test_torch_fmband.py and
+    tests/test_torch_amband.py hold theirs."""
     import luaradio_tpu_torch as lr
     from luaradio_tpu_torch.applications.apps import RxWBFM
     from radiobench.window import BenchSink, Window

@@ -143,9 +143,10 @@ def test_fault_state_unchanged():
 
 def test_fault_half_the_bank():
     """Half of a bank's rows left out: the second half computed from the
-    first half's inputs."""
+    first half's inputs, on the host route (``read``) and on the wire
+    route (``read_wire_into``) that a bank of u8 captures takes."""
     from luaradio_tpu_torch.blocks.sources.bank import BankSource
-    orig = BankSource.read
+    orig, orig_wire = BankSource.read, BankSource.read_wire_into
 
     def half(self, n):
         x = orig(self, n)
@@ -154,8 +155,15 @@ def test_fault_half_the_bank():
             x = x.copy()
             x[h:] = x[:h]
         return x
+
+    def half_wire(self, out):
+        n = orig_wire(self, out)
+        h = out.shape[0] // 2
+        out[h:2 * h] = out[:h]
+        return n
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(BankSource, "read", half)
+        mp.setattr(BankSource, "read_wire_into", half_wire)
         res, _ = _run("mono.bank64")
     assert not res["correct"]
 
